@@ -11,7 +11,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      every kernel from ``src/repro_torch/kernels/csrc`` (into the
      git-ignored ``kernels/_build/``), with the compiler's register report;
   1. every kernel against its plain PyTorch version, bit for bit, on a
-     sweep of shapes, each timed with CUDA events (median of 20 runs);
+     sweep of shapes up to the packed path's full size, each timed with
+     CUDA events (median of 20 runs);
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
@@ -25,15 +26,29 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      one at a time with a live ``add_edges`` in between; each answer
      must equal ``eval_many`` at its ticket's epoch, and the kernel must
      have launched;
-  4. oracle: a smaller graph's answers on the card must equal the
-     brute-force product-graph oracle.
+  4. oracle: a smaller graph's answers on the card, from the ring engine
+     and from the packed BFS, must equal the brute-force product-graph
+     oracle;
+  5. packed path: ``packed_bfs`` (``nfa_step`` + ``segment_or`` each
+     superstep, every edge swept) on a ``DenseGraph`` on the card over
+     phase 2's graph answers (a) phase 2's requests, which must equal
+     the ring engine's answers, and (b) the hub closures phase 2 left
+     out, with their supersteps and seconds; (c) the first hub closures
+     rerun on the host with the plain versions must give the same
+     visited words and supersteps; a profiled rerun of (b) gives the
+     card's idle share; both kernels are held to their plain versions
+     at the launch of (a) and (b) with the most non-zero words;
+  6. rank: every level of the ring's wavelet trees through the rank
+     kernels: the directory must equal the level's ``sb_rank``, and
+     1,048,576 random ranks the host ``BitVector.rank1``.
 
-Each of phases 2-4 sets the launch counts to 0 just before it and
+Each of phases 2-6 sets the launch counts to 0 just before its path and
 prints them just after.
 
-Then the ``kernels`` line (launches on the main path, times at the
-largest main-path launch) and, last, the ``ok`` line, right after it.  Any mismatch or
-exception exits non-zero before the ``ok`` line.  Without a CUDA device,
+Then the ``kernels`` line (each kernel's launches on its path and its
+times at its path's largest launch, the heaviest for ``segment_or``)
+and, last, the ``ok`` line, right after it.  Any mismatch or exception
+exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
 non-zero and prints no result.
 """
@@ -55,6 +70,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # arithmetic instructions), times 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# 32-bit population counts: 16 results per clock per SM at compute
+# capability 9.0 (same table), same SMs and clock
+POPC_PER_S = 16 * 132 * 1.98e9
 
 SWEEP = [(1, 1), (5, 4), (700, 33), (1024, 64), (513, 32), (2048, 7)]
 MAIN_N = (64, 1_000, 16_384)
@@ -62,6 +80,22 @@ MAIN_S = (11, 700, 4_096)
 # wide tables (213 KB and 246 KB, W = 41 and 44 words): past a block's
 # 227 KB of shared memory, and several 8-word output chunks per row
 EDGE_S = (1_300, 1_400)
+
+# segment_or: the JAX package's test shapes (E, W, V), then the packed
+# path's full size, the completed triples and nodes of phase 2's graph
+SEG_SWEEP = [(1, 1, 1), (10, 1, 4), (3000, 2, 50), (2050, 1, 2000),
+             (1024, 3, 7)]
+FULL_E, FULL_V = 3_954_840, 200_000
+FULL_W = (1, 2, 4)
+# share of non-zero words in the sparse values; the packed path's own
+# launches, whose heaviest phase 5 times, run at 5-8.5%
+SPARSE_WORDS = 0.01
+SCAN_SHAPES = [(2_500, 2), (FULL_E, 1)]
+RANK_BITS = (100, 515, 8_192, 40_000, FULL_E)
+RANK_QUERIES = (4_096, 1_048_576)
+
+# phase 5: hub closures rerun on the host with the plain versions
+HOST_CHECKS = 8
 
 # Requests per eval_many batch.  On this graph the one-endpoint requests
 # that finish at all are tiny (a handful of activations each), so only a
@@ -104,6 +138,14 @@ def time_ms(fn, runs: int = 20) -> float:
     return statistics.median(out)
 
 
+def bound(n_bytes: float, n_ops: float = 0.0, ops_per_s: float = 1.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM's rate and
+    operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def nfa_bound(X, S: int):
     """(bound_ms, bound_by) of one nfa_step call on these inputs.  Bytes:
     X read once, Y written once, and once each table row that a set bit
@@ -117,14 +159,57 @@ def nfa_bound(X, S: int):
     selects = ((x.unsqueeze(-1) >> shifts) & 1).bool().reshape(N, -1)[:, :S]
     set_bits = int(selects.sum())
     rows = int(selects.any(0).sum())
-    t_bytes = (2 * N * W + rows * W) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = set_bits * W / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound((2 * N * W + rows * W) * 4, set_bits * W, INT32_OPS_PER_S)
 
 
 def max_abs_err(a, b) -> int:
     from repro_torch.kernels.ref import widen
     return int((widen(a) - widen(b)).abs().max()) if a.numel() else 0
+
+
+def segment_or_bound(vals, num_segments: int):
+    """Each value read once, the segment id of each row that has a
+    non-zero word read once (a zero word ORs nothing in, so its id is
+    not needed), the output written once: 4*E*W + 4*rows + 4*V*W bytes,
+    ids counted at 4 bytes, not at whole 32-byte sectors.  One OR per
+    non-zero word."""
+    E, W = vals.shape
+    nonzero = vals != 0
+    rows = int(nonzero.any(1).sum()) if E else 0
+    return bound(4 * E * W + 4 * rows + 4 * num_segments * W,
+                 int(nonzero.sum()), INT32_OPS_PER_S)
+
+
+def scan_bound(vals):
+    """Values and flags read once, the scan written once; one OR per
+    word."""
+    E, W = vals.shape
+    return bound(8 * E * W + 4 * E, E * W, INT32_OPS_PER_S)
+
+
+def popcounts_bound(words):
+    """Words read once, one int32 per superblock written; one popcount a
+    word."""
+    NW = words.shape[0]
+    return bound(4 * NW + 4 * (NW // 16), NW, POPC_PER_S)
+
+
+def rank1_bound(words, directory, i):
+    """Each offset read and each rank written once, and once each word
+    and directory entry that some query needs: the words of its
+    superblock below its bit.  One popcount per word a query needs."""
+    import torch
+    i64 = i.to(torch.int64)
+    lo = (i64 >> 9) * 16                           # first word of the window
+    hi = (i64 >> 5) + ((i64 & 31) != 0).to(torch.int64)   # past its last
+    NW = words.shape[0]
+    marks = torch.zeros(NW + 1, dtype=torch.int64, device=i.device)
+    marks.index_add_(0, lo.clamp(0, NW), torch.ones_like(lo))
+    marks.index_add_(0, hi.clamp(0, NW), -torch.ones_like(hi))
+    words_needed = int((torch.cumsum(marks, 0)[:NW] > 0).sum())
+    dir_needed = int(torch.unique(i64 >> 9).numel())
+    return bound(4 * (2 * i.shape[0] + words_needed + dir_needed),
+                 int((hi - lo).clamp(min=0).sum()), POPC_PER_S)
 
 
 # -- phase 0 -----------------------------------------------------------------
@@ -143,7 +228,8 @@ def phase_device():
         _build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": v["seconds"],
-                          "ptxas": v["ptxas"].splitlines()[-6:]}
+                          "ptxas": [ln for ln in v["ptxas"].splitlines()
+                                    if "Used" in ln or "spill" in ln]}
                       for n, v in _build.BUILD_LOG.items()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
@@ -169,11 +255,53 @@ def _words(rng, N, S, density=None):
     return arr
 
 
-def phase_kernels(errs: list):
+def check_and_time(errs: dict, name: str, kernel, plain, args,
+                   where) -> dict:
+    """``kernel`` against ``plain`` (its plain version, run on the same
+    card tensors), bit for bit, then both timed."""
+    err = max_abs_err(kernel(*args), plain(*args))
+    errs.setdefault(name, []).append(err)
+    if err:
+        fail(f"{name} differs from its plain version at {where}")
+    return {"max_abs_err": err, "ms": time_ms(lambda: kernel(*args)),
+            "plain_ms": time_ms(lambda: plain(*args))}
+
+
+def kernel_check(errs: dict, name: str, kernel, plain, args, bound_ms,
+                 **shape) -> None:
+    """:func:`check_and_time` at one shape; one JSON line."""
+    emit({"phase": "kernel_check", "kernel": name, **shape,
+          **check_and_time(errs, name, kernel, plain, args, shape),
+          "bound_ms": bound_ms[0], "bound_by": bound_ms[1]})
+
+
+def _hub_ids(rng, E: int, V: int):
+    """[E] sorted int32 segment ids drawn with the graph fixture's node
+    law (weight rank**-0.8), so a few hub segments hold many rows."""
     import numpy as np
+    wn = 1.0 / np.arange(1, V + 1, dtype=np.float64) ** 0.8
+    return np.sort(rng.choice(V, size=E, p=wn / wn.sum())).astype(np.int32)
+
+
+def _bitvector(rng, n_bits: int):
+    """Packed uint32 words of ``n_bits`` random bits, padded to whole
+    superblocks plus one, as the JAX package's rank tests pad them."""
+    import numpy as np
+    nw = ((n_bits + 511) // 512) * 16 + 16
+    bits = np.zeros(nw * 32, dtype=bool)
+    bits[:n_bits] = rng.random(n_bits) < 0.5
+    return np.packbits(bits.reshape(nw, 32), axis=1,
+                       bitorder="little").view(np.uint32).ravel()
+
+
+def phase_kernels(errs: dict, capture: dict):
+    import numpy as np
+    import torch
     from repro_torch.kernels import nfa_step as knfa
+    from repro_torch.kernels import rank_popcount as krank
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_or as kseg
     from repro_torch.kernels.ops import words_to_tensor
-    from repro_torch.kernels.ref import nfa_step_ref
     rng = np.random.default_rng(2024)
     shapes = [(N, S, None) for N, S in SWEEP]
     shapes += [(N, S, 3) for N in MAIN_N for S in MAIN_S]
@@ -181,17 +309,62 @@ def phase_kernels(errs: list):
     for N, S, density in shapes:
         X = words_to_tensor(_words(rng, N, S, density), "cuda")
         bwd = words_to_tensor(_words(rng, S, S), "cuda")
-        err = max_abs_err(knfa.nfa_step_cuda(X, bwd), nfa_step_ref(X, bwd))
-        errs.append(err)
-        if err:
-            fail(f"nfa_step differs from its plain version at N={N} S={S}")
-        bound, by = nfa_bound(X, S)
-        emit({"phase": "kernel_check", "kernel": "nfa_step", "N": N, "S": S,
-              "W": X.shape[1], "set_bits_per_row": density or "uniform",
-              "max_abs_err": err,
-              "ms": time_ms(lambda: knfa.nfa_step_cuda(X, bwd)),
-              "plain_ms": time_ms(lambda: nfa_step_ref(X, bwd)),
-              "bound_ms": bound, "bound_by": by})
+        kernel_check(errs, "nfa_step", knfa.nfa_step_cuda, ref.nfa_step_ref,
+                     (X, bwd), nfa_bound(X, S), N=N, S=S, W=X.shape[1],
+                     set_bits_per_row=density or "uniform")
+
+    def ids(a):
+        return torch.from_numpy(a).to("cuda")
+
+    seg_shapes = [(E, W, V, "uniform", np.sort(rng.integers(0, V, E)))
+                  for E, W, V in SEG_SWEEP]
+    hubs = _hub_ids(rng, FULL_E, FULL_V)
+    seg_shapes += [(FULL_E, W, FULL_V, values, hubs)
+                   for W in FULL_W for values in ("uniform", "sparse")]
+    for E, W, V, values, seg in seg_shapes:
+        vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+        if values == "sparse":
+            vals[rng.random((E, W)) >= SPARSE_WORDS] = 0
+        vals = words_to_tensor(vals, "cuda")
+        kernel_check(errs, "segment_or", kseg.segment_or_cuda,
+                     ref.segment_or_ref, (vals, ids(seg.astype(np.int32)), V),
+                     segment_or_bound(vals, V), E=E, W=W, V=V, values=values)
+
+    for E, W in SCAN_SHAPES:
+        vals = words_to_tensor(
+            rng.integers(0, 2**32, (E, W), dtype=np.uint32), "cuda")
+        if E == FULL_E:        # segments of the packed path's edges
+            starts = np.concatenate([[1], hubs[1:] != hubs[:-1]])
+        else:
+            starts = rng.random(E) < 0.1
+            starts[0] = True
+        flags = ids(starts.astype(np.int32))
+        kernel_check(errs, "segmented_or_scan", kseg.segmented_or_scan_cuda,
+                     ref.segmented_or_scan_ref, (vals, flags),
+                     scan_bound(vals), E=E, W=W)
+        capture["segmented_or_scan"] = (vals, flags)
+
+    for n_bits in RANK_BITS:
+        words = words_to_tensor(_bitvector(rng, n_bits), "cuda")
+        kernel_check(errs, "superblock_popcounts",
+                     krank.superblock_popcounts_cuda,
+                     ref.superblock_popcounts_ref, (words,),
+                     popcounts_bound(words), n_bits=n_bits,
+                     NW=words.shape[0])
+        pc = krank.superblock_popcounts_cuda(words)
+        directory = torch.cat([pc.new_zeros(1),
+                               torch.cumsum(pc, 0, dtype=torch.int32)])
+        for Q in RANK_QUERIES:
+            q = ids(np.concatenate([[0, n_bits], rng.integers(
+                0, n_bits + 1, Q - 2)]).astype(np.int32))
+            kernel_check(errs, "rank1", krank.rank1_cuda,
+                         ref.rank1_window_ref, (words, directory, q),
+                         rank1_bound(words, directory, q), n_bits=n_bits,
+                         Q=Q)
+            want = ref.rank1_ref(words, q)      # no directory, no window
+            if not torch.equal(krank.rank1_cuda(words, directory, q), want):
+                fail(f"rank1 differs from the prefix-sum rank at "
+                     f"n_bits={n_bits} Q={Q}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -363,7 +536,7 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
         **busy,
         "skipped_hub_deadline_overrun": overrun,
     }
-    return engine, queries, answers, report
+    return engine, queries, answers, skipped, report
 
 
 def device_busy(ring, device, queries, deadline_s):
@@ -436,9 +609,13 @@ def phase_serving(ring, queries, answers_epoch0, seed: int = 5):
 
 # -- phase 4 -----------------------------------------------------------------
 def phase_oracle(device: str, num_queries: int = 8):
+    """A smaller graph's answers, from the ring engine and from the packed
+    BFS, both on the card, against the brute-force oracle."""
     from repro_torch import kernels
     from repro_torch.core import fixtures, oracle, patterns
+    from repro_torch.core.dense import DenseGraph
     from repro_torch.core.engines import make_engine
+    from repro_torch.core.packed import packed_eval
     graph = fixtures.scale_free_graph(2_000, 8, 15_000, seed=3)
     engine = make_engine(graph, device=device, kernel_threshold=1)
     wl = patterns.generate_workload(num_queries, graph.num_preds,
@@ -450,8 +627,18 @@ def phase_oracle(device: str, num_queries: int = 8):
     launches = kernels.launch_counts()["nfa_step"]
     if launches <= 0:
         fail("the oracle phase launched no nfa_step kernel")
+    ring_s = time.perf_counter() - t0
+    dg = DenseGraph.from_graph(graph, device=device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    packed = [packed_eval(dg, graph, e, s, o)[0] for e, s, o in qs]
+    packed_launches = kernels.launch_counts()
+    packed_s = time.perf_counter() - t0
+    if min(packed_launches["nfa_step"], packed_launches["segment_or"]) <= 0:
+        fail("the oracle phase's packed BFS launched no nfa_step or "
+             "segment_or kernel")
     every_pair = {}   # expr -> all pairs: one oracle pass per expression
-    for (e, s, o), res in zip(qs, got):
+    for (e, s, o), res, res_packed in zip(qs, got, packed):
         if s is not None:
             want = oracle.eval_oracle(graph, e, s, o)
         else:
@@ -460,35 +647,312 @@ def phase_oracle(device: str, num_queries: int = 8):
             want = {(a, b) for a, b in every_pair[e] if o is None or b == o}
         if res != want:
             fail(f"answer of {(e, s, o)} differs from the oracle")
+        if res_packed != want:
+            fail(f"packed BFS answer of {(e, s, o)} differs from the oracle")
     return {"phase": "oracle", "queries": len(qs),
             "answers": sum(len(r) for r in got),
             "kernel_batches": engine.bundle_kernel_batches,
-            "kernel_launches": launches,
+            "kernel_launches": launches, "ring_s": ring_s,
+            "packed_kernel_launches": {k: packed_launches[k] for k in
+                                       ("nfa_step", "segment_or")},
+            "packed_s": packed_s}
+
+
+# -- phase 5 -----------------------------------------------------------------
+class HeaviestLaunch:
+    """``packed_bfs``'s ``on_step`` hook: keeps the superstep whose
+    ``segment_or`` values have the most non-zero words (among those of
+    the largest size), with the ``nfa_step`` inputs that made them.
+    Counting costs one reduction and one host sync a superstep."""
+
+    def __init__(self, dg):
+        self.dg = dg
+        self.key = (-1, -1)
+        self.largest_E = 0
+        self.nfa_step = self.segment_or = None
+
+    def __call__(self, X, bwd, Y):
+        self.largest_E = max(self.largest_E, int(X.shape[0]))
+        key = (Y.numel(), int((Y != 0).sum()))
+        if key > self.key:
+            self.key = key
+            self.nfa_step = (X, bwd)
+            self.segment_or = (Y, self.dg.subj, self.dg.num_nodes)
+
+
+def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
+                 capture: dict):
+    """The packed BFS on the card over phase 2's graph: (a) the batch's
+    requests, held to the ring engine's answers; (b) the hub closures
+    the batch left out, through ``packed_eval`` as a user calls it, then
+    through ``packed_bfs`` alone (``in_packed_bfs_s``; apart from the
+    answer sets ``packed_eval`` builds, plus the recorder's count a
+    superstep); (c) the first of those again on the card and on the
+    host, with the plain versions, held word for word.  A profiled rerun
+    of (b) gives the card's idle share and the host ops and kernels that
+    take its time.  The launch counts cover (a) and (b) through
+    ``packed_eval``; the launch of (a) and (b) with the most non-zero
+    words is kept, and both kernels are checked and timed on it."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import regex as rx
+    from repro_torch.core.dense import DenseGraph
+    from repro_torch.core.packed import (one_endpoint_bfs, packed_bfs,
+                                         packed_eval)
+    from repro_torch.kernels import nfa_step as knfa
+    from repro_torch.kernels import ref
+    t0 = time.perf_counter()
+    dg = DenseGraph.from_graph(graph, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    heaviest = HeaviestLaunch(dg)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps_a = 0
+    for q, want in zip(queries, ring_answers):
+        got, steps = packed_eval(dg, graph, q.expr, q.subject, q.obj,
+                                 on_step=heaviest)
+        steps_a += steps
+        if got != want:
+            fail(f"packed answer of {q} differs from the ring engine's")
+    batch_s = time.perf_counter() - t0
+
+    hub = []
+    t0 = time.perf_counter()
+    for q in skipped:
+        t1 = time.perf_counter()
+        got, steps = packed_eval(dg, graph, q.expr, q.subject, q.obj)
+        hub.append((time.perf_counter() - t1, steps, len(got)))
+    torch.cuda.synchronize()
+    hub_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for k in ("nfa_step", "segment_or"):
+        if launches[k] <= 0:
+            fail(f"the packed path launched no {k} kernel")
+
+    def bfs(q):
+        return one_endpoint_bfs(graph, rx.parse(q.expr), q.subject, q.obj)
+
+    t0 = time.perf_counter()
+    for q, (_s, steps, _n) in zip(skipped, hub):
+        _vis, it = packed_bfs(dg, *bfs(q), on_step=heaviest)
+        if it != steps:
+            fail(f"packed_bfs of {q} took {it} supersteps, packed_eval "
+                 f"{steps}")
+    in_bfs_s = time.perf_counter() - t0
+
+    # (c) the first hub closures on the card and on the host
+    host = DenseGraph.from_graph(graph, device="cpu")
+    checked, t0 = [], time.perf_counter()
+    for q in skipped[:HOST_CHECKS]:
+        auto, start = bfs(q)
+        vis, it = packed_bfs(dg, auto, start)
+        t1 = time.perf_counter()
+        want_vis, want_it = packed_bfs(host, auto, start)
+        checked.append({"query": [q.expr, q.subject, q.obj],
+                        "supersteps": it, "words": int(vis.size),
+                        "host_s": time.perf_counter() - t1})
+        if it != want_it or not np.array_equal(vis, want_vis):
+            fail(f"packed BFS of {q} on the card differs from the host's")
+    if len(checked) < HOST_CHECKS:
+        fail(f"only {len(checked)} of {HOST_CHECKS} hub closures were "
+             f"checked on the host")
+
+    # both kernels at the heaviest launch kept, as the packed path runs
+    # them; segment_or is timed in the kernels line
+    X, bwd = heaviest.nfa_step
+    vals, _ids, V = capture["segment_or"] = heaviest.segment_or
+    at_launch = {
+        "nfa_step": {**check_and_time(errs, "nfa_step", knfa.nfa_step_cuda,
+                                      ref.nfa_step_ref, (X, bwd),
+                                      "the packed path's launch"),
+                     "bound": nfa_bound(X, bwd.shape[0]),
+                     "N": int(X.shape[0]), "S": int(bwd.shape[0]),
+                     "W": int(X.shape[1])},
+        "segment_or": {"E": int(vals.shape[0]), "W": int(vals.shape[1]),
+                       "V": V, "nonzero_words": heaviest.key[1],
+                       "nonzero_rows": int((vals != 0).any(1).sum()),
+                       "bound": segment_or_bound(vals, V)}}
+
+    secs = np.array([h[0] for h in hub])
+    steps = np.array([h[1] for h in hub])
+    return {"phase": "packed_path",
+            "graph": {"nodes": dg.num_nodes, "edges": int(dg.subj.numel()),
+                      "labels": dg.num_labels},
+            "dense_graph_build_s": build_s,
+            "batch": {"requests": len(queries), "equal_to_ring": True,
+                      "seconds": batch_s, "supersteps": steps_a},
+            "hub_closures": {
+                "requests": len(skipped), "seconds": hub_s,
+                "in_packed_bfs_s": in_bfs_s,
+                "answers": sum(h[2] for h in hub),
+                "supersteps_total": int(steps.sum()),
+                "supersteps_min_median_max": [int(steps.min()),
+                                              float(np.median(steps)),
+                                              int(steps.max())],
+                "request_s_median_p99_max": [float(np.median(secs)),
+                                             float(np.quantile(secs, 0.99)),
+                                             float(secs.max())]},
+            "host_checks": {"ran": len(checked),
+                            "seconds": time.perf_counter() - t0,
+                            "runs": checked},
+            "kernel_launches": {k: launches[k] for k in
+                                ("nfa_step", "segment_or")},
+            "largest_E_per_launch": heaviest.largest_E,
+            "kernels_at_heaviest_launch": at_launch,
+            **packed_busy(dg, graph, skipped)}
+
+
+def packed_busy(dg, graph, skipped, top: int = 8):
+    """Rerun (b) under ``torch.profiler``: the card's kernel and copy
+    time against the rerun's wall time, and the ``top`` host ops (self
+    CPU time) and device kernels (self device time) of the rerun."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.packed import packed_eval
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for q in skipped:
+            packed_eval(dg, graph, q.expr, q.subject, q.obj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    host = [e for e in events
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+
+    def rows(evs, attr):
+        evs = sorted(evs, key=lambda e: getattr(e, attr), reverse=True)
+        return [[e.key[:60], e.count, getattr(e, attr) / 1e3]
+                for e in evs[:top]]
+
+    return {"profiled_hub_s": wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top_host_ops_count_ms": rows(host, "self_cpu_time_total"),
+            "top_kernels_count_ms": rows(device, "self_device_time_total")}
+
+
+# -- phase 6 -----------------------------------------------------------------
+def phase_rank(ring, capture: dict, queries: int = 1_048_576, seed: int = 9):
+    """The rank kernels on the ring's own wavelet bitvectors: every level
+    of ``wt_s`` and ``wt_p``, its uint64 words viewed as uint32 (same bit
+    order, same 512-bit superblocks).  The card's directory must equal
+    the level's ``sb_rank``, and its ranks at random positions (and 0
+    and n) the host ``BitVector.rank1`` and the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import rank1_window_ref
+    rng = np.random.default_rng(seed)
+    levels = [("wt_s", l, bv) for l, bv in enumerate(ring.wt_s.bvs)]
+    levels += [("wt_p", l, bv) for l, bv in enumerate(ring.wt_p.bvs)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for tree, level, bv in levels:
+        words = kops.words_to_tensor(bv.words.view(np.uint32), "cuda")
+        directory = kops.build_rank_directory(words)
+        if not np.array_equal(directory.cpu().numpy().astype(np.int64),
+                              bv.sb_rank.astype(np.int64)):
+            fail(f"rank directory of {tree} level {level} differs from "
+                 f"sb_rank")
+        pos = np.concatenate([[0, bv.n], rng.integers(0, bv.n + 1, queries)])
+        q = torch.from_numpy(pos.astype(np.int32)).to("cuda")
+        got = kops.rank1(words, directory, q)
+        if not np.array_equal(got.cpu().numpy().astype(np.int64),
+                              bv.rank1(pos)):
+            fail(f"rank1 of {tree} level {level} differs from the host "
+                 f"BitVector.rank1")
+        if not torch.equal(got, rank1_window_ref(words, directory, q)):
+            fail(f"rank1 of {tree} level {level} differs from its plain "
+                 f"version")
+        if words.numel() > capture.get("rank_words", -1):
+            capture.update(rank_words=words.numel(),
+                           rank=(words, directory, q))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for k in ("superblock_popcounts", "rank1"):
+        if launches[k] <= 0:
+            fail(f"the rank phase launched no {k} kernel")
+    return {"phase": "rank", "levels": {"wt_s": len(ring.wt_s.bvs),
+                                        "wt_p": len(ring.wt_p.bvs)},
+            "bits_per_level": int(ring.wt_s.bvs[0].n),
+            "queries_per_level": queries + 2,
+            "equal_to_host_rank1": True,
+            "kernel_launches": {k: launches[k] for k in
+                                ("superblock_popcounts", "rank1")},
             "seconds": time.perf_counter() - t0}
 
 
 # -- the kernels line ----------------------------------------------------------
-def kernels_line(capture, launches: int, errs: list):
+KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
+    "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
+                 "src/repro/kernels/nfa_step.py:54"),
+    "segment_or": ("src/repro_torch/kernels/csrc/segment_or.cu",
+                   "src/repro/kernels/segment_or.py:43"),
+    "segmented_or_scan": ("src/repro_torch/kernels/csrc/segment_or.cu",
+                          "src/repro/kernels/segment_or.py:43"),
+    "superblock_popcounts": ("src/repro_torch/kernels/csrc/rank_popcount.cu",
+                             "src/repro/kernels/rank_popcount.py:36"),
+    "rank1": ("src/repro_torch/kernels/csrc/rank_popcount.cu",
+              "src/repro/kernels/rank_popcount.py:61"),
+}
+
+
+def kernels_line(capture: dict, launches: dict, errs: dict):
+    """One entry per kernel, timed at the largest launch of its path:
+    ``nfa_step`` at phase 2's, ``segment_or`` at phase 5's (the one with
+    the most non-zero words), the rank
+    kernels at phase 6's largest level, ``segmented_or_scan`` (on no
+    path) at phase 1's full size.  ``library_ms`` is null throughout:
+    no single PyTorch call ORs or popcounts packed words."""
     from repro_torch.kernels import nfa_step as knfa
-    from repro_torch.kernels.ref import nfa_step_ref
+    from repro_torch.kernels import rank_popcount as krank
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_or as kseg
     X, bwd = capture["X"], capture["bwd"]
-    got, want = knfa.nfa_step_cuda(X, bwd), nfa_step_ref(X, bwd)
-    errs.append(max_abs_err(got, want))
-    if errs[-1]:
-        fail("nfa_step differs from its plain version on main-path input")
-    bound, by = nfa_bound(X, bwd.shape[0])
-    return {"kernels": [{
-        "name": "nfa_step", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/nfa_step.cu",
-        "replaces": "src/repro/kernels/nfa_step.py:54",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": time_ms(lambda: knfa.nfa_step_cuda(X, bwd)),
-        "plain_ms": time_ms(lambda: nfa_step_ref(X, bwd)),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": None,
-        "shape": {"N": int(X.shape[0]), "S": int(bwd.shape[0]),
-                  "W": int(X.shape[1])},
-    }]}
+    vals, seg_ids, V = capture["segment_or"]
+    scan_vals, flags = capture["segmented_or_scan"]
+    words, directory, q = capture["rank"]
+    timed = {
+        "nfa_step": (knfa.nfa_step_cuda, ref.nfa_step_ref, (X, bwd),
+                     nfa_bound(X, bwd.shape[0]),
+                     {"N": int(X.shape[0]), "S": int(bwd.shape[0]),
+                      "W": int(X.shape[1])}),
+        "segment_or": (kseg.segment_or_cuda, ref.segment_or_ref,
+                       (vals, seg_ids, V), segment_or_bound(vals, V),
+                       {"E": int(vals.shape[0]), "W": int(vals.shape[1]),
+                        "V": V, "nonzero_words": int((vals != 0).sum())}),
+        "segmented_or_scan": (kseg.segmented_or_scan_cuda,
+                              ref.segmented_or_scan_ref, (scan_vals, flags),
+                              scan_bound(scan_vals),
+                              {"E": int(scan_vals.shape[0]),
+                               "W": int(scan_vals.shape[1])}),
+        "superblock_popcounts": (krank.superblock_popcounts_cuda,
+                                 ref.superblock_popcounts_ref, (words,),
+                                 popcounts_bound(words),
+                                 {"NW": int(words.shape[0])}),
+        "rank1": (krank.rank1_cuda, ref.rank1_window_ref,
+                  (words, directory, q), rank1_bound(words, directory, q),
+                  {"NW": int(words.shape[0]), "Q": int(q.shape[0])}),
+    }
+    out = []
+    for name, (kernel, plain, args, (b, by), shape) in timed.items():
+        times = check_and_time(errs, name, kernel, plain, args,
+                               "its path's input")
+        source, replaces = KERNEL_SOURCES[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            **times, "max_abs_err": max(errs[name]),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": shape})
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -509,11 +973,11 @@ def main() -> int:
     from repro_torch.core import fixtures
     t_start = time.perf_counter()
     phase_device()
-    errs: list = []
-    phase_kernels(errs)
-    graph = fixtures.scale_free_graph(200_000, 64, 2_000_000, seed=7)
+    errs: dict = {}
     capture: dict = {}
-    engine, queries, answers, report = run_main_path(
+    phase_kernels(errs, capture)
+    graph = fixtures.scale_free_graph(200_000, 64, 2_000_000, seed=7)
+    engine, queries, answers, skipped, report = run_main_path(
         graph, "cuda", BATCH, BATCH_DEADLINE_S, capture)
     torch.cuda.synchronize()
     emit({"phase": "main_path", **report})
@@ -521,7 +985,14 @@ def main() -> int:
         fail("the main path launched no nfa_step kernel")
     emit(phase_serving(engine.ring, queries, answers))
     emit(phase_oracle("cuda"))
-    kernels = kernels_line(capture, report["kernel_launches"], errs)
+    packed = phase_packed(graph, queries, answers, skipped, errs, capture)
+    emit(packed)
+    rank = phase_rank(engine.ring, capture)
+    emit(rank)
+    kernels = kernels_line(capture, {
+        "nfa_step": report["kernel_launches"],
+        "segment_or": packed["kernel_launches"]["segment_or"],
+        **rank["kernel_launches"]}, errs)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(kernels)                      # the line before the last
     print(json.dumps({"ok": True, "device": {

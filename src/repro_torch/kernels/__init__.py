@@ -9,23 +9,36 @@ use.
 ``KERNELS`` names the kernel-backed entry points of :mod:`.ops`,
 mirroring the JAX package's ``PALLAS_KERNELS``: each has a ``<name>_ref``
 plain version in :mod:`.ref` and a parity test in
-``tests/test_torch_kernels.py``.
+``tests/test_torch_kernels.py``.  ``KERNEL_MODULES`` maps each to the
+module whose ``launches`` dict counts its CUDA launches.
 """
 import importlib
 from typing import Dict
 
-KERNELS = ("nfa_step",)
+KERNEL_MODULES = {
+    "nfa_step": "nfa_step",
+    "segment_or": "segment_or",
+    "segmented_or_scan": "segment_or",
+    "superblock_popcounts": "rank_popcount",
+    "rank1": "rank_popcount",
+}
+KERNELS = tuple(KERNEL_MODULES)
+
+
+def _counter(kernel: str) -> Dict[str, int]:
+    return importlib.import_module(
+        f"{__name__}.{KERNEL_MODULES[kernel]}").launches
 
 
 def launch_counts() -> Dict[str, int]:
     """CUDA launches per kernel since the last reset."""
-    return {k: importlib.import_module(f"{__name__}.{k}").launches
-            for k in KERNELS}
+    return {k: _counter(k)[k] for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        importlib.import_module(f"{__name__}.{k}").launches = 0
+        _counter(k)[k] = 0
 
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "KERNEL_MODULES", "launch_counts",
+           "reset_launch_counts"]

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -28,9 +30,20 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # kernel name -> (source file, {C function: (argtypes, restype)})
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 SOURCES = {
     "nfa_step": ("nfa_step.cu", {
         "nfa_step_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    }),
+    "segment_or": ("segment_or.cu", {
+        "segment_or_launch": ([_P, _P, _P, _L, _I, _I, _P], _I),
+        "segmented_or_scan_tile_rows": ([], _I),
+        "segmented_or_scan_launch": ([_P, _P, _P, _P, _P, _P, _L, _I, _P],
+                                     _I),
+    }),
+    "rank_popcount": ("rank_popcount.cu", {
+        "superblock_popcounts_launch": ([_P, _P, _L, _P], _I),
+        "rank1_launch": ([_P, _P, _P, _P, _L, _L, _L, _P], _I),
     }),
 }
 
@@ -103,3 +116,27 @@ def library(name: str) -> ctypes.CDLL:
             f.restype = restype
         _LIBS[name] = lib
     return lib
+
+
+# -- checks the wrappers share ------------------------------------------------
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel takes contiguous tensors on a CUDA device (the wrappers
+    check first that all are on one device)."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} wants CUDA tensors, got "
+                         f"{tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} wants contiguous tensors")
+
+
+def check_cpu(name: str, t: torch.Tensor) -> None:
+    """A plain version runs on CPU tensors only."""
+    if t.device.type != "cpu":
+        raise ValueError(f"{name} runs on CPU tensors, got {t.device}")
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise on the cudaError_t a launch function returned."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")

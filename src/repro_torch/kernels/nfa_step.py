@@ -31,7 +31,7 @@ from .ref import nfa_step_ref
 
 # launches of the CUDA kernel since the last reset (see
 # ``repro_torch.kernels.reset_launch_counts``)
-launches = 0
+launches = {"nfa_step": 0}
 
 
 def _check(X: torch.Tensor, bwd: torch.Tensor) -> None:
@@ -54,12 +54,8 @@ def nfa_step_cuda(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream.  X: [N, W] and
     bwd: [S, W] contiguous int32 words on one CUDA device.  Raises on
     anything the kernel does not take and on a refused launch."""
-    global launches
     _check(X, bwd)
-    if X.device.type != "cuda":
-        raise ValueError(f"nfa_step_cuda wants CUDA tensors, got {X.device}")
-    if not (X.is_contiguous() and bwd.is_contiguous()):
-        raise ValueError("nfa_step_cuda wants contiguous X and bwd")
+    _build.check_cuda("nfa_step_cuda", X, bwd)
     N, W = X.shape
     Y = torch.empty_like(X)
     if N == 0:
@@ -69,18 +65,15 @@ def nfa_step_cuda(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.nfa_step_launch(X.data_ptr(), bwd.data_ptr(), Y.data_ptr(),
                                  N, bwd.shape[0], W, stream)
-    if rc != 0:
-        raise RuntimeError(f"nfa_step launch failed: cudaError {rc}")
-    launches += 1
+    _build.check_launch(rc, "nfa_step")
+    launches["nfa_step"] += 1
     return Y
 
 
 def nfa_step_plain(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
     """The kernel's plain PyTorch version, for CPU tensors."""
     _check(X, bwd)
-    if X.device.type != "cpu":
-        raise ValueError(f"nfa_step_plain runs on CPU tensors, got "
-                         f"{X.device}")
+    _build.check_cpu("nfa_step_plain", X)
     return nfa_step_ref(X, bwd)
 
 

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from . import nfa_step as _nfa
+from . import rank_popcount as _rank
+from . import segment_or as _seg
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,12 +62,59 @@ def unpack_bits(packed: np.ndarray, S: int) -> np.ndarray:
     return bits.reshape(*packed.shape[:-1], W * 32)[..., :S].astype(np.uint8)
 
 
+def _route(name: str, cuda, plain, t: torch.Tensor):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if t.device.type == "cuda":
+        return cuda
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def nfa_step(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
     """Bit-parallel reverse Glushkov step: Y = T'[X] (packed int32
     words).  CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
-    if X.device.type == "cuda":
-        return _nfa.nfa_step_cuda(X, bwd)
-    if X.device.type == "cpu":
-        return _nfa.nfa_step_plain(X, bwd)
-    raise ValueError(f"nfa_step: unsupported device {X.device}")
+    return _route("nfa_step", _nfa.nfa_step_cuda, _nfa.nfa_step_plain,
+                  X)(X, bwd)
+
+
+def segment_or(vals: torch.Tensor, seg_ids: torch.Tensor,
+               num_segments: int) -> torch.Tensor:
+    """Scatter-OR of packed rows: out[v] = OR of vals[e] with
+    seg_ids[e] == v, as [num_segments, W] int32 words.  vals [E, W] and
+    seg_ids [E] are int32; unlike the JAX package's, ids need not be
+    sorted."""
+    return _route("segment_or", _seg.segment_or_cuda, _seg.segment_or_plain,
+                  vals)(vals, seg_ids, num_segments)
+
+
+def segmented_or_scan(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented OR-scan of [E, W] int32 words over the whole
+    array; flags [E] int32 are nonzero at segment starts."""
+    return _route("segmented_or_scan", _seg.segmented_or_scan_cuda,
+                  _seg.segmented_or_scan_plain, vals)(vals, flags)
+
+
+def superblock_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """Set bits per 512-bit superblock of [NW] int32 words (NW % 16 == 0)
+    -> [NW / 16] int32."""
+    return _route("superblock_popcounts", _rank.superblock_popcounts_cuda,
+                  _rank.superblock_popcounts_plain, words)(words)
+
+
+def build_rank_directory(words: torch.Tensor) -> torch.Tensor:
+    """Rank directory of [NW] int32 words: a leading 0, then the prefix
+    sum of the superblock popcounts, [NW / 16 + 1] int32."""
+    pc = superblock_popcounts(words)
+    return torch.cat([pc.new_zeros(1),
+                      torch.cumsum(pc, dim=0, dtype=torch.int32)])
+
+
+def rank1(words: torch.Tensor, directory: torch.Tensor,
+          i: torch.Tensor) -> torch.Tensor:
+    """Batched rank1 over a packed bitvector: the set bits in [0, i) for
+    each int32 bit offset of ``i`` [Q], from [NW] int32 words and their
+    directory (:func:`build_rank_directory`) -> [Q] int32."""
+    return _route("rank1", _rank.rank1_cuda, _rank.rank1_plain,
+                  words)(words, directory, i)

@@ -37,3 +37,116 @@ def nfa_step_ref(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
         bit = (x[:, w] >> k) & 1                  # [N] in {0, 1}
         Y |= (-bit)[:, None] & b[j][None, :]      # -1 is all ones in int64
     return narrow(Y)
+
+
+# -- bitwise helpers ----------------------------------------------------------
+
+_BYTE_POPCOUNT = torch.tensor([bin(b).count("1") for b in range(256)],
+                              dtype=torch.int64)
+
+
+def popcount(values: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 value in [0, 2**32) (torch has no popcount):
+    four byte lookups."""
+    table = _BYTE_POPCOUNT.to(values.device)
+    out = torch.zeros_like(values)
+    for shift in (0, 8, 16, 24):
+        out += table[(values >> shift) & 0xFF]
+    return out
+
+
+# -- segment OR ---------------------------------------------------------------
+
+def segment_or_ref(vals: torch.Tensor, seg_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """vals: [E, W] int32 words; seg_ids: [E] int32 or int64, in any order.
+    out[v] = OR of vals[e] with seg_ids[e] == v, as [V, W] int32 words;
+    ids outside [0, V) contribute nothing.  All-zero rows are dropped
+    first (they OR nothing in), then one ``amax`` scatter per bit."""
+    V, W = num_segments, vals.shape[1]
+    seg = seg_ids.to(torch.int64)
+    keep = (vals != 0).any(dim=1) & (seg >= 0) & (seg < V)
+    x = widen(vals[keep])
+    idx = seg[keep][:, None].expand(-1, W)
+    out = torch.zeros((V, W), dtype=torch.int64, device=vals.device)
+    for b in range(32):
+        bit = torch.zeros((V, W), dtype=torch.int64, device=vals.device)
+        bit.scatter_reduce_(0, idx, (x >> b) & 1, "amax")
+        out |= bit << b
+    return narrow(out)
+
+
+def segmented_or_scan_ref(vals: torch.Tensor,
+                          flags: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented OR-scan over the whole array (no tiles).
+    vals: [E, W] int32 words; flags: [E], nonzero where a segment starts.
+    Row e is the OR of rows s..e, s being the last start at or before e
+    (row 0 if none).  Per bit: a running count of set bits, less the
+    count before the segment's start, is positive iff some row set it."""
+    E, W = vals.shape
+    x = widen(vals)
+    pos = torch.arange(E, device=vals.device)
+    start = torch.cummax(torch.where(flags != 0, pos, 0), dim=0).values \
+        if E else pos
+    out = torch.zeros_like(x)
+    for b in range(32):
+        run = torch.cumsum((x >> b) & 1, dim=0)
+        before = torch.where((start > 0)[:, None], run[start - 1], 0)
+        out |= ((run - before) > 0).to(torch.int64) << b
+    return narrow(out)
+
+
+# -- rank -----------------------------------------------------------------------
+
+SB_WORDS = 16  # 16 x 32-bit words = 512-bit superblocks
+
+
+def superblock_popcounts_ref(words: torch.Tensor,
+                             sb_words: int = SB_WORDS) -> torch.Tensor:
+    """words: [NW] int32 words, NW % sb_words == 0 -> [NW / sb_words]
+    int32 set bits per superblock."""
+    return popcount(widen(words)).reshape(-1, sb_words).sum(dim=1) \
+        .to(torch.int32)
+
+
+def rank_window_ref(windows: torch.Tensor, masks: torch.Tensor,
+                    bases: torch.Tensor) -> torch.Tensor:
+    """windows, masks: [Q, 16] int32 words; bases: [Q] int32 ->
+    bases + set bits of (windows & masks) per row, int32."""
+    pc = popcount(widen(windows) & widen(masks)).sum(dim=1)
+    return (bases.to(torch.int64) + pc).to(torch.int32)
+
+
+def rank1_window_ref(words: torch.Tensor, directory: torch.Tensor,
+                     i: torch.Tensor) -> torch.Tensor:
+    """The rank kernel's function: directory[i >> 9] plus the masked
+    popcount of the query's 16-word superblock window.  words: [NW] int32
+    words; directory: [NW/16 + 1] int32; i: [Q] int32 bit offsets ->
+    [Q] int32.  Word and directory indices are clamped into their
+    arrays, as the JAX package's gathers clamp."""
+    i64 = i.to(torch.int64)
+    sb = i64 >> 9
+    widx = sb[:, None] * SB_WORDS + torch.arange(SB_WORDS,
+                                                 device=words.device)
+    windows = words[widx.clamp(0, words.shape[0] - 1)]
+    # masks: all ones below the query's word, its low i & 31 bits in it
+    # (none when that is 0), nothing above
+    rel = (i64 >> 5)[:, None] - widx
+    partial = (1 << (i64 & 31)[:, None]) - 1
+    masks = torch.where(rel > 0, WORD_MASK, torch.where(rel == 0, partial, 0))
+    bases = directory[sb.clamp(0, directory.shape[0] - 1)]
+    return rank_window_ref(windows, narrow(masks), bases)
+
+
+def rank1_ref(words: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """End-to-end rank1: set bits in [0, i) from a global prefix sum, no
+    directory and no window.  words: [NW] int32; i: [Q] int32 -> [Q]
+    int32."""
+    i64 = i.to(torch.int64)
+    pc = popcount(widen(words))
+    cum = torch.cat([pc.new_zeros(1), torch.cumsum(pc, dim=0)])
+    wq = i64 >> 5
+    partial = (1 << (i64 & 31)) - 1
+    word = widen(words[wq.clamp(0, words.shape[0] - 1)])
+    return (cum[wq.clamp(0, words.shape[0])] + popcount(word & partial)) \
+        .to(torch.int32)

@@ -13,11 +13,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.core import fixtures  # noqa: E402
+from repro_torch.core import regex as rx  # noqa: E402
+from repro_torch.core.dense import DenseGraph  # noqa: E402
+from repro_torch.core.glushkov import Glushkov  # noqa: E402
+from repro_torch.core.packed import packed_bfs, packed_eval  # noqa: E402
 from repro_torch.core.ring import Ring  # noqa: E402
 from repro_torch.core.engines import Query  # noqa: E402
 from repro_torch.core.rpq import QueryStats, RingRPQ  # noqa: E402
 from repro_torch.core.scheduler import SlotScheduler  # noqa: E402
 from repro_torch.kernels import nfa_step as knfa, ops  # noqa: E402
+from repro_torch.kernels import rank_popcount as krank  # noqa: E402
+from repro_torch.kernels import segment_or as kseg  # noqa: E402
 
 SHAPES = [(1, 1), (5, 4), (700, 33), (1024, 64), (513, 32), (2048, 7),
           (1000, 700), (16384, 11), (1000, 1300), (1000, 1400), (64, 4096)]
@@ -131,3 +137,141 @@ def test_slot_scheduler_with_updates_on_card_matches_host(cuda_device):
     host, _ = _serve(g, "cpu", script)
     assert card == host
     assert {epoch for epoch, _ in card} == {0, 1, 2, 3, 4}
+
+
+def _on(dev, arr):
+    return ops.words_to_tensor(arr, dev) if arr.dtype == np.uint32 \
+        else torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
+
+
+def _card_and_plain(name, fn, dev, *arrays):
+    """``fn`` on the card (one launch of ``name``) and on the CPU (its
+    plain version), as numpy arrays."""
+    tk.reset_launch_counts()
+    got = fn(*[_on(dev, a) if isinstance(a, np.ndarray) else a
+               for a in arrays])
+    torch.cuda.synchronize()
+    assert tk.launch_counts()[name] == 1
+    want = fn(*[_on("cpu", a) if isinstance(a, np.ndarray) else a
+                for a in arrays])
+    return got.cpu().numpy(), want.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,W,V,density,ordered", [
+    (1, 1, 1, 1.0, True), (10, 1, 4, 1.0, True), (3000, 2, 50, 1.0, True),
+    (2050, 1, 2000, 1.0, True), (1024, 3, 7, 1.0, True),
+    (200_000, 4, 5_000, 0.01, True), (100_000, 2, 300, 0.3, False)])
+def test_segment_or_cuda_matches_plain(cuda_device, E, W, V, density,
+                                       ordered):
+    rng = np.random.default_rng(E + V)
+    seg = rng.integers(0, V, E).astype(np.int32)
+    if ordered:
+        seg.sort()
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    vals[rng.random((E, W)) >= density] = 0
+    got, want = _card_and_plain("segment_or", ops.segment_or, cuda_device,
+                                vals, seg, V)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,W,p", [(1, 1, 1.0), (2500, 2, 0.1),
+                                   (1024, 1, 0.0), (1025, 3, 0.001),
+                                   (3_000_000, 1, 0.00001),
+                                   (2_000_000, 2, 0.01)])
+def test_segmented_or_scan_cuda_matches_plain(cuda_device, E, W, p):
+    """One segment may span many tiles (p small), and the tile summaries
+    span several chunks of the carry pass (over 1024 tiles)."""
+    rng = np.random.default_rng(E + W)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    vals[rng.random((E, W)) < 0.9] = 0
+    flags = (rng.random(E) < p).astype(np.int32)
+    flags[0] = 1
+    got, want = _card_and_plain("segmented_or_scan", ops.segmented_or_scan,
+                                cuda_device, vals, flags)
+    np.testing.assert_array_equal(got, want)
+
+
+def _bitvector_words(rng, n_bits):
+    nw = ((n_bits + 511) // 512) * 16 + 16
+    words = rng.integers(0, 2**32, nw, dtype=np.uint32)
+    words[(n_bits + 31) // 32:] = 0
+    if n_bits % 32:
+        words[n_bits // 32] &= np.uint32((1 << (n_bits % 32)) - 1)
+    return words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [100, 515, 8192, 40000, 3_954_840])
+def test_rank_kernels_cuda_match_plain(cuda_device, n_bits):
+    rng = np.random.default_rng(n_bits)
+    words = _bitvector_words(rng, n_bits)
+    got, want = _card_and_plain("superblock_popcounts",
+                                ops.superblock_popcounts, cuda_device, words)
+    np.testing.assert_array_equal(got, want)
+    directory = ops.build_rank_directory(ops.words_to_tensor(words, "cpu"))
+    q = np.concatenate([rng.integers(0, n_bits + 1, 4096),
+                        [0, n_bits, 32, 512, 31, 511]]).astype(np.int32)
+    q = q[q <= n_bits]
+    got, want = _card_and_plain("rank1", ops.rank1, cuda_device, words,
+                                directory.numpy(), q)
+    np.testing.assert_array_equal(got, want)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(got, np.concatenate(
+        [[0], np.cumsum(bits[:n_bits])])[q])
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_bad_inputs(cuda_device):
+    vals = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kseg.segment_or_cuda(vals[:, :1], ids, 3)        # not contiguous
+    with pytest.raises(ValueError):
+        kseg.segment_or_cuda(vals, ids.cpu(), 3)         # two devices
+    with pytest.raises(TypeError):
+        kseg.segment_or_cuda(vals, ids.long(), 3)
+    with pytest.raises(ValueError):
+        kseg.segmented_or_scan_cuda(vals, ids[:3])       # shapes disagree
+    with pytest.raises(TypeError):
+        kseg.segmented_or_scan_cuda(vals.float(), ids)
+    assert kseg.segment_or_cuda(vals[:0], ids[:0], 3).shape == (3, 2)
+    assert kseg.segmented_or_scan_cuda(vals[:0], ids[:0]).shape == (0, 2)
+    words = torch.zeros(32, dtype=torch.int32, device=cuda_device)
+    directory = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    q = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        krank.superblock_popcounts_cuda(words[:20])      # not whole blocks
+    with pytest.raises(ValueError):
+        krank.superblock_popcounts_cuda(words[::2][:16])  # not contiguous
+    with pytest.raises(TypeError):
+        krank.superblock_popcounts_cuda(words.long())
+    with pytest.raises(ValueError):
+        krank.rank1_cuda(words, directory.cpu(), q)      # two devices
+    with pytest.raises(TypeError):
+        krank.rank1_cuda(words, directory, q.long())
+    with pytest.raises(ValueError):
+        krank.rank1_cuda(words, directory[None], q)      # 2-D directory
+
+
+@pytest.mark.cuda
+def test_packed_bfs_on_card_matches_host(cuda_device):
+    g = fixtures.scale_free_graph(3_000, 6, 12_000, seed=4)
+    card = DenseGraph.from_graph(g, device=cuda_device)
+    host = DenseGraph.from_graph(g, device="cpu")
+    for n in ("subj", "pred", "obj"):
+        assert torch.equal(getattr(card, n).cpu(), getattr(host, n))
+    exprs = ["0/1*", "(0|2)+/^1", "^0/(1|3)*/2", "0+"]
+    exprs.append("/".join("(0|^1)" if k % 3 else "2*" for k in range(20)))
+    tk.reset_launch_counts()
+    for e, start in zip(exprs, [[0], [5, 17], [1], list(range(50)), [3]]):
+        auto = Glushkov.from_ast(rx.parse(e), g.resolve_lit)
+        vis, it = packed_bfs(card, auto, start)
+        want_vis, want_it = packed_bfs(host, auto, start)
+        np.testing.assert_array_equal(vis, want_vis)
+        assert it == want_it
+    counts = tk.launch_counts()
+    assert counts["nfa_step"] > 0 and counts["segment_or"] > 0
+    for e, s, o in [("0/1*", None, 7), ("(0|2)+/^1", 3, None)]:
+        assert packed_eval(card, g, e, s, o) == packed_eval(host, g, e, s, o)

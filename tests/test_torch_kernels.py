@@ -1,15 +1,16 @@
 """The port's kernels against the JAX package's, bit for bit.
 
-On the CPU the port's ``nfa_step`` runs its plain PyTorch version; the
-JAX side runs the Pallas kernel in interpret mode (as
-``tests/test_kernels.py`` does) and its pure-jnp oracle.  The CUDA
-kernel itself is held to the plain version in ``test_torch_cuda.py``,
-which runs only on a machine with a card."""
+On the CPU the port's entry points run their plain PyTorch versions; the
+JAX side runs the Pallas kernels in interpret mode (as
+``tests/test_kernels.py`` does) and its pure-jnp oracles.  The CUDA
+kernels themselves are held to the plain versions in
+``test_torch_cuda.py``, which runs only on a machine with a card."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 try:
@@ -19,9 +20,13 @@ except ImportError:
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro.kernels.nfa_step import pack_block_diagonal as j_pack  # noqa: E402
+from repro.kernels.segment_or import (  # noqa: E402
+    TILE_E as J_TILE_E, segmented_or_scan as j_scan_tiles)
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
 from repro_torch.kernels import nfa_step as tnfa  # noqa: E402
+from repro_torch.kernels import rank_popcount as trank  # noqa: E402
+from repro_torch.kernels import segment_or as tseg  # noqa: E402
 
 SWEEP = [(1, 1), (5, 4), (700, 33), (1024, 64), (513, 32), (2048, 7)]
 
@@ -131,7 +136,13 @@ def test_plain_version_does_not_count_launches():
     tk.reset_launch_counts()
     X, bwd = _inputs(np.random.default_rng(5), 10, 7)
     _port_nfa_step(X, bwd)
-    assert tk.launch_counts()["nfa_step"] == 0
+    _port_segment_or(X, np.array([0, 0, 1, 1, 1, 2, 3, 3, 4, 6]), 7)
+    _port_segmented_or_scan(X, np.ones(10, dtype=np.int32))
+    words = tops.words_to_tensor(_bitvector_words(
+        np.random.default_rng(6), 600, 0.5)[0], "cpu")
+    tops.rank1(words, tops.build_rank_directory(words),
+               torch.tensor([0, 7, 600], dtype=torch.int32))
+    assert tk.launch_counts() == {k: 0 for k in tk.KERNELS}
 
 
 def test_wrapper_checks_inputs_and_never_falls_back():
@@ -147,3 +158,180 @@ def test_wrapper_checks_inputs_and_never_falls_back():
         tops.nfa_step(X, torch.zeros((3, 2), dtype=torch.int32))
     with pytest.raises(ValueError):       # no third device kind
         tops.nfa_step(X.to("meta"), bwd.to("meta"))
+
+
+# -- segment_or and segmented_or_scan ------------------------------------------
+
+def _port_segment_or(vals, seg, V):
+    out = tops.segment_or(tops.words_to_tensor(vals, "cpu"),
+                          torch.from_numpy(np.asarray(seg, dtype=np.int32)),
+                          V)
+    assert out.dtype == torch.int32 and out.shape == (V, vals.shape[1])
+    return tops.tensor_to_words(out)
+
+
+def _port_segmented_or_scan(vals, flags):
+    out = tops.segmented_or_scan(
+        tops.words_to_tensor(vals, "cpu"),
+        torch.from_numpy(np.asarray(flags, dtype=np.int32)))
+    assert out.dtype == torch.int32 and out.shape == vals.shape
+    return tops.tensor_to_words(out)
+
+
+def _scatter_or(vals, seg, V):
+    want = np.zeros((V, vals.shape[1]), dtype=np.uint32)
+    np.bitwise_or.at(want, seg, vals)
+    return want
+
+
+@pytest.mark.parametrize("E,W,V", [(1, 1, 1), (10, 1, 4), (3000, 2, 50),
+                                   (2050, 1, 2000), (1024, 3, 7)])
+def test_segment_or_shapes(E, W, V):
+    rng = np.random.default_rng(E * 7 + W * 3 + V)
+    seg = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    got = _port_segment_or(vals, seg, V)
+    np.testing.assert_array_equal(got, np.asarray(jops.segment_or(vals, seg,
+                                                                  V)))
+    np.testing.assert_array_equal(got, _scatter_or(vals, seg, V))
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.integers(1, 3000), st.integers(1, 3), st.integers(1, 100),
+       st.integers(0, 2**31 - 1))
+def test_segment_or_property(E, W, V, seed):
+    """Against ``np.bitwise_or.at``, with most rows zero (as on the packed
+    BFS path) and ids in any order: the port's scatter needs no sort."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, V, E).astype(np.int32)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    vals[rng.random(E) < 0.7] = 0
+    np.testing.assert_array_equal(_port_segment_or(vals, seg, V),
+                                  _scatter_or(vals, seg, V))
+
+
+def test_segment_or_empty_inputs_and_empty_segments():
+    vals = np.zeros((0, 2), dtype=np.uint32)
+    np.testing.assert_array_equal(_port_segment_or(vals, [], 5),
+                                  np.zeros((5, 2), dtype=np.uint32))
+    vals = np.array([[1], [2], [4]], dtype=np.uint32)
+    np.testing.assert_array_equal(_port_segment_or(vals, [1, 1, 3], 5),
+                                  [[0], [3], [0], [4], [0]])
+
+
+def _scan_inputs(E, W, p):
+    rng = np.random.default_rng(E + W)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    flags = (rng.random(E) < p).astype(np.int32)
+    flags[0] = 1
+    return vals, flags
+
+
+@pytest.mark.parametrize("E,W,p", [(2500, 2, 0.1), (1, 1, 0.5),
+                                   (3000, 1, 0.001), (1500, 3, 0.5)])
+def test_segmented_or_scan_matches_reference(E, W, p):
+    """The whole array against the JAX package's associative-scan
+    oracle: segments run across the JAX kernel's tiles."""
+    vals, flags = _scan_inputs(E, W, p)
+    np.testing.assert_array_equal(
+        _port_segmented_or_scan(vals, flags),
+        np.asarray(jax.jit(jref.segmented_or_scan_ref)(
+            jnp.asarray(vals), jnp.asarray(flags))))
+
+
+def test_segmented_or_scan_first_tile_matches_pallas():
+    """The JAX kernel scans within tiles only, so its first ``TILE_E``
+    rows, which depend on those rows alone, are the whole scan's."""
+    vals, flags = _scan_inputs(2500, 2, 0.1)
+    assert tseg.TILE_E == J_TILE_E
+    T = tseg.TILE_E
+    tile = np.asarray(j_scan_tiles(jnp.asarray(vals[:T]),
+                                   jnp.asarray(flags[:T])))
+    np.testing.assert_array_equal(_port_segmented_or_scan(vals, flags)[:T],
+                                  tile)
+
+
+# -- rank ------------------------------------------------------------------------
+
+def _bitvector_words(rng, n_bits, density):
+    """Packed words of ``n_bits`` random bits, padded as the JAX package's
+    rank tests pad them (whole superblocks plus one)."""
+    bits = rng.random(n_bits) < density
+    nw = ((n_bits + 511) // 512) * 16 + 16
+    padded = np.zeros(nw * 32, dtype=bool)
+    padded[:n_bits] = bits
+    words = np.packbits(padded.reshape(nw, 32), axis=1,
+                        bitorder="little").view(np.uint32).ravel()
+    return words, bits
+
+
+@pytest.mark.parametrize("n_bits", [100, 515, 8192, 40000])
+def test_superblock_popcounts_and_directory(n_bits):
+    words, _ = _bitvector_words(np.random.default_rng(n_bits), n_bits, 0.5)
+    tw = tops.words_to_tensor(words, "cpu")
+    pc = tops.superblock_popcounts(tw)
+    assert pc.dtype == torch.int32
+    np.testing.assert_array_equal(
+        pc.numpy(), np.asarray(jref.superblock_popcounts_ref(
+            jnp.asarray(words))))
+    directory = tops.build_rank_directory(tw)
+    assert directory.dtype == torch.int32
+    np.testing.assert_array_equal(directory.numpy(),
+                                  np.asarray(jops.build_rank_directory(words)))
+
+
+@pytest.mark.parametrize("n_bits", [100, 515, 8192, 40000])
+def test_rank1_matches_reference(n_bits):
+    """Against the JAX package's kernel pipeline, its end-to-end oracle
+    and a numpy prefix sum, at offsets that include 0, n and word and
+    superblock boundaries (the i & 31 == 0 case)."""
+    rng = np.random.default_rng(n_bits + 1)
+    words, bits = _bitvector_words(rng, n_bits, 0.3)
+    q = np.concatenate([rng.integers(0, n_bits + 1, 300),
+                        [0, n_bits, 32, 512, 31, 511, 513]])
+    q = q[q <= n_bits].astype(np.int32)
+    tw = tops.words_to_tensor(words, "cpu")
+    got = tops.rank1(tw, tops.build_rank_directory(tw), torch.from_numpy(q))
+    assert got.dtype == torch.int32
+    got = got.numpy()
+    jdir = jops.build_rank_directory(jnp.asarray(words))
+    np.testing.assert_array_equal(got, np.asarray(
+        jops.rank1(jnp.asarray(words), jdir, q)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.rank1_ref(jnp.asarray(words), jnp.asarray(q))))
+    np.testing.assert_array_equal(got, np.concatenate([[0],
+                                                       np.cumsum(bits)])[q])
+    np.testing.assert_array_equal(
+        tref.rank1_ref(tw, torch.from_numpy(q)).numpy(), got)
+
+
+def test_new_wrappers_check_inputs_and_never_fall_back():
+    vals = torch.zeros((4, 2), dtype=torch.int32)
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):       # the CUDA wrappers want CUDA
+        tseg.segment_or_cuda(vals, ids, 3)
+    with pytest.raises(ValueError):
+        tseg.segmented_or_scan_cuda(vals, ids)
+    with pytest.raises(TypeError):
+        tops.segment_or(vals, ids.to(torch.int64), 3)
+    with pytest.raises(ValueError):
+        tops.segment_or(vals, ids[:3], 3)
+    with pytest.raises(ValueError):
+        tops.segment_or(vals, ids, -1)
+    with pytest.raises(TypeError):
+        tops.segmented_or_scan(vals.to(torch.int64), ids)
+    with pytest.raises(ValueError):       # no third device kind
+        tops.segment_or(vals.to("meta"), ids.to("meta"), 3)
+    words = torch.zeros(32, dtype=torch.int32)
+    directory = torch.zeros(3, dtype=torch.int32)
+    q = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        trank.superblock_popcounts_cuda(words)
+    with pytest.raises(ValueError):
+        trank.rank1_cuda(words, directory, q)
+    with pytest.raises(ValueError):       # not whole superblocks
+        tops.superblock_popcounts(words[:20])
+    with pytest.raises(TypeError):
+        tops.rank1(words, directory, q.to(torch.int64))
+    with pytest.raises(ValueError):
+        tops.rank1(words, directory[:0], q)
