@@ -12,13 +12,17 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      git-ignored ``kernels/_build/``), with the compiler's register report;
   1. every kernel against its plain PyTorch version, bit for bit, on a
      sweep of shapes up to the packed path's full size, each timed with
-     CUDA events (median of 20 runs);
+     CUDA events (median of 20 runs); ``nfa_step`` in both its layouts
+     (a thread or a warp per row), and ``packed_superstep`` at the full
+     size with 1% and 100% of the frontier rows live, beside the
+     unfused superstep it replaced (``unfused_ms``);
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
      the answers and work counters must equal a host run of the same
      engine with the kernel's plain version, and the answers a host run
      with scalar tables; a profiled rerun gives the card's busy share;
+     the line names the layout of the batch's ``nfa_step`` launch;
      two of the hub closures left out of the batch are timed under a
      1 s deadline, to show how far past it they run;
   3. serving: a ``SlotScheduler`` over a CUDA engine on the same ring,
@@ -29,15 +33,19 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
   4. oracle: a smaller graph's answers on the card, from the ring engine
      and from the packed BFS, must equal the brute-force product-graph
      oracle;
-  5. packed path: ``packed_bfs`` (``nfa_step`` + ``segment_or`` each
-     superstep, every edge swept) on a ``DenseGraph`` on the card over
-     phase 2's graph answers (a) phase 2's requests, which must equal
-     the ring engine's answers, and (b) the hub closures phase 2 left
-     out, with their supersteps and seconds; (c) the first hub closures
-     rerun on the host with the plain versions must give the same
-     visited words and supersteps; a profiled rerun of (b) gives the
-     card's idle share; both kernels are held to their plain versions
-     at the launch of (a) and (b) with the most non-zero words;
+  5. packed path: ``packed_bfs`` (one ``packed_superstep`` launch and
+     one flag read each superstep, every edge swept) on a ``DenseGraph``
+     on the card over phase 2's graph answers (a) phase 2's requests,
+     which must equal the ring engine's answers, and (b) the hub
+     closures phase 2 left out, with their supersteps and seconds; (c)
+     the first hub closures rerun on the host with the plain version
+     must give the same visited words and supersteps; a profiled rerun
+     of (b) gives the card's idle share and ``cudaLaunchKernel`` calls a
+     superstep; ``packed_superstep`` (beside the unfused superstep),
+     and ``nfa_step`` and ``segment_or`` on its transition, are held to
+     their plain versions at the superstep of (a) and (b) with the most
+     non-zero words; the path must launch ``packed_superstep`` and
+     neither of the other two (phase 4's packed BFS too);
   6. rank: every level of the ring's wavelet trees through the rank
      kernels: the directory must equal the level's ``sb_rank``, and
      1,048,576 random ranks the host ``BitVector.rank1``.
@@ -46,7 +54,8 @@ Each of phases 2-6 sets the launch counts to 0 just before its path and
 prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
-times at its path's largest launch, the heaviest for ``segment_or``)
+times at its path's largest launch, the heaviest superstep for
+``packed_superstep`` and ``segment_or``)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -80,6 +89,9 @@ MAIN_S = (11, 700, 4_096)
 # wide tables (213 KB and 246 KB, W = 41 and 44 words): past a block's
 # 227 KB of shared memory, and several 8-word output chunks per row
 EDGE_S = (1_300, 1_400)
+# row widths between the sweep's W = 2 and W = 22, where nfa_step's two
+# layouts (a thread or a warp per row) may cross: W = 3, 5, 8, 12, 16
+LAYOUT_S = (96, 160, 256, 384, 512)
 
 # segment_or: the JAX package's test shapes (E, W, V), then the packed
 # path's full size, the completed triples and nodes of phase 2's graph
@@ -91,6 +103,11 @@ FULL_W = (1, 2, 4)
 # launches, whose heaviest phase 5 times, run at 5-8.5%
 SPARSE_WORDS = 0.01
 SCAN_SHAPES = [(2_500, 2), (FULL_E, 1)]
+# packed_superstep at the full size: (S, share of live frontier rows,
+# law of the objects), with the 2P = 128 labels of phase 2's graph
+SUPERSTEP_SHAPES = [(20, 0.01, "hub"), (20, 1.0, "hub"), (40, 0.01, "hub"),
+                    (40, 1.0, "hub"), (20, 0.01, "uniform"), (20, 0.0, "hub")]
+FULL_L = 128
 RANK_BITS = (100, 515, 8_192, 40_000, FULL_E)
 RANK_QUERIES = (4_096, 1_048_576)
 
@@ -180,6 +197,42 @@ def segment_or_bound(vals, num_segments: int):
                  int(nonzero.sum()), INT32_OPS_PER_S)
 
 
+def superstep_bound(f, v, Bp, bwd, subj, pred, obj):
+    """What one packed_superstep must move, from these inputs: every
+    edge's obj and every frontier word (4*E + 4*V*W); the pred of each
+    row whose frontier word below S is non-zero and the subj of each row
+    whose transition is non-zero (4 each); at each word the transition
+    reaches, v read (4) and, where the mask leaves bits, nxt written
+    (4); at each non-zero frontier word v read and written (8); spare
+    written (4*V*W); the tables once.  Operations: W ORs per set bit of
+    X below S."""
+    from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref
+    E = obj.shape[0]
+    (V, W), S, L = f.shape, bwd.shape[0], Bp.shape[0]
+    fo = f.index_select(0, obj)
+    rows_f = int((fo[:, :(S + 31) // 32] != 0).any(1).sum())
+    X = fo & Bp.index_select(0, pred)
+    Y = nfa_step_ref(X, bwd)
+    rows_y = int((Y != 0).any(1).sum())
+    reach = segment_or_ref(Y, subj, V)
+    targets = int((reach != 0).sum())
+    written = int(((reach & ~(v | f)) != 0).sum())
+    n_bytes = (4 * E + 8 * V * W + 4 * (rows_f + rows_y + targets + written)
+               + 8 * int((f != 0).sum()) + 4 * (L + S) * W)
+    set_bits = int(_set_bits_below(X, S))
+    return bound(n_bytes, set_bits * W, INT32_OPS_PER_S)
+
+
+def _set_bits_below(X, S: int):
+    """Set bits of [N, W] int32 words X at positions below S."""
+    import torch
+    from repro_torch.kernels.ref import popcount, widen
+    x = widen(X[:, :(S + 31) // 32])
+    if S % 32:
+        x[:, -1] &= (1 << (S % 32)) - 1
+    return popcount(x).sum() if x.numel() else torch.zeros(())
+
+
 def scan_bound(vals):
     """Values and flags read once, the scan written once; one OR per
     word."""
@@ -267,12 +320,131 @@ def check_and_time(errs: dict, name: str, kernel, plain, args,
             "plain_ms": time_ms(lambda: plain(*args))}
 
 
+def superstep_check_and_time(errs: dict, args, where) -> dict:
+    """``packed_superstep`` against its plain version, bit for bit, each
+    on its own copy of the state (it works in place): visited, nxt,
+    spare and the flag after.  Then both timed in place on a further
+    copy: a repeat on the state a superstep leaves does the same work
+    (v already holds f, the same words are ORed into nxt again).  Beside
+    them, the unfused composition the pass replaced (``unfused_ms``)."""
+    import torch
+    from repro_torch.kernels import packed_superstep as ksup
+    from repro_torch.kernels import ref
+    state, stamp, tables = args[:5], args[5], args[6:]
+
+    def run(step):
+        copy = [t.clone() for t in state]
+        step(*copy, stamp, *tables)
+        return copy
+
+    got = run(ksup.packed_superstep_cuda)
+    want = run(ref.packed_superstep_ref)
+    err = max_abs_err(*(torch.cat([t.reshape(-1) for t in c])
+                        for c in (got, want)))
+    errs.setdefault("packed_superstep", []).append(err)
+    if err:
+        fail(f"packed_superstep differs from its plain version at {where}")
+    copy = [t.clone() for t in state]
+
+    def kernel():
+        ksup.packed_superstep_cuda(*copy, stamp, *tables)
+
+    return {"max_abs_err": err, "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: ref.packed_superstep_ref(
+                *copy, stamp, *tables)),
+            "unfused_ms": unfused_ms(args, want[2], where)}
+
+
+def unfused_ms(args, want_next, where) -> float:
+    """Card time of the superstep as the packed path ran it before
+    ``packed_superstep`` fused it, on the same state: the gathers
+    ``f[obj]`` and ``Bp[pred]``, the AND, ``nfa_step``, ``segment_or``
+    into a zeroed buffer, the and-not, the OR into visited, and the stop
+    test's reduction (its host sync left out, as the fused pass's flag
+    read is).  Its next frontier must equal ``want_next``."""
+    import torch
+    from repro_torch.kernels import nfa_step as knfa
+    from repro_torch.kernels import segment_or as kseg
+    f, v = args[0], args[1]
+    Bp, bwd, subj, pred, obj = args[6:]
+    visited = v | f                  # the unfused loop's visited holds f
+
+    def step():
+        X = f.index_select(0, obj) & Bp.index_select(0, pred)
+        Y = knfa.nfa_step_cuda(X, bwd)
+        new = kseg.segment_or_cuda(Y, subj, f.shape[0]) & ~visited
+        visited.bitwise_or_(new)
+        return new, (new != 0).any()
+
+    new, _ = step()
+    if not torch.equal(new, want_next):
+        fail(f"the unfused superstep differs from packed_superstep at "
+             f"{where}")
+    return time_ms(step)
+
+
 def kernel_check(errs: dict, name: str, kernel, plain, args, bound_ms,
                  **shape) -> None:
     """:func:`check_and_time` at one shape; one JSON line."""
     emit({"phase": "kernel_check", "kernel": name, **shape,
           **check_and_time(errs, name, kernel, plain, args, shape),
           "bound_ms": bound_ms[0], "bound_by": bound_ms[1]})
+
+
+def nfa_layouts(X, bwd) -> dict:
+    """Both of nfa_step's layouts on the same input, each bit-exact with
+    the wrapper's launch, and timed: the times behind the wrapper's
+    rule, and the layout it picks."""
+    import torch
+    from repro_torch.kernels import nfa_step as knfa
+    want = knfa.nfa_step_cuda(X, bwd)
+    times = {}
+    for rows in ("thread_per_row", "warp_per_row"):
+        if not torch.equal(knfa.launch_layout(X, bwd, rows), want):
+            fail(f"nfa_step's {rows} layout differs at {tuple(X.shape)}")
+        times[rows] = time_ms(lambda: knfa.launch_layout(X, bwd, rows))
+    return {"layout": knfa.layout(X.shape[1]), "layout_ms": times}
+
+
+def gather_ms(args) -> float:
+    """Time of torch's ``index_select`` of the frontier rows every edge
+    reads (``f[obj]``) on a superstep's arguments: a yardstick for the
+    part of the edge pass no design that reads every edge's frontier
+    word avoids."""
+    f, obj = args[0], args[10]
+    return time_ms(lambda: f.index_select(0, obj))
+
+
+def _superstep_state(rng, S: int, live: float, hubs, objects: str):
+    """packed_superstep arguments at the packed path's full size: hub-law
+    subjects (sorted, as ``DenseGraph`` keeps them), objects by the same
+    law (``"hub"``) or uniform, uniform labels, a frontier with ``live``
+    of its rows non-zero, a sparse visited set, random tables."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import words_to_tensor
+    W = (S + 31) // 32
+
+    def words(shape, keep):
+        a = rng.integers(0, 2**32, shape, dtype=np.uint32)
+        a[rng.random(shape[0]) >= keep] = 0
+        if S % 32:
+            a[:, -1] &= np.uint32((1 << (S % 32)) - 1)
+        return words_to_tensor(a, "cuda")
+
+    def ids(a):
+        return torch.from_numpy(a.astype(np.int32)).to("cuda")
+
+    f = words((FULL_V, W), live)
+    v = words((FULL_V, W), 0.2) & ~f
+    nxt = torch.zeros_like(f)
+    spare = words((FULL_V, W), 1.0)
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return (f, v, nxt, spare, flag, 1, words((FULL_L, W), 1.0),
+            words((S, W), 1.0), ids(hubs), ids(rng.integers(0, FULL_L,
+                                                             FULL_E)),
+            ids(rng.permutation(hubs) if objects == "hub"
+                else rng.integers(0, FULL_V, FULL_E)))
 
 
 def _hub_ids(rng, E: int, V: int):
@@ -306,12 +478,14 @@ def phase_kernels(errs: dict, capture: dict):
     shapes = [(N, S, None) for N, S in SWEEP]
     shapes += [(N, S, 3) for N in MAIN_N for S in MAIN_S]
     shapes += [(1_000, S, 3) for S in EDGE_S]
+    shapes += [(N, S, 3) for N in MAIN_N[1:] for S in LAYOUT_S]
     for N, S, density in shapes:
         X = words_to_tensor(_words(rng, N, S, density), "cuda")
         bwd = words_to_tensor(_words(rng, S, S), "cuda")
         kernel_check(errs, "nfa_step", knfa.nfa_step_cuda, ref.nfa_step_ref,
                      (X, bwd), nfa_bound(X, S), N=N, S=S, W=X.shape[1],
-                     set_bits_per_row=density or "uniform")
+                     set_bits_per_row=density or "uniform",
+                     **nfa_layouts(X, bwd))
 
     def ids(a):
         return torch.from_numpy(a).to("cuda")
@@ -329,6 +503,17 @@ def phase_kernels(errs: dict, capture: dict):
         kernel_check(errs, "segment_or", kseg.segment_or_cuda,
                      ref.segment_or_ref, (vals, ids(seg.astype(np.int32)), V),
                      segment_or_bound(vals, V), E=E, W=W, V=V, values=values)
+
+    for S, live, objects in SUPERSTEP_SHAPES:
+        args = _superstep_state(rng, S, live, hubs, objects)
+        emit({"phase": "kernel_check", "kernel": "packed_superstep",
+              "E": FULL_E, "V": FULL_V, "L": FULL_L, "S": S,
+              "W": int(args[0].shape[1]), "live_rows": live,
+              "objects": objects,
+              **superstep_check_and_time(errs, args, (S, live, objects)),
+              "gather_ms": gather_ms(args),
+              **dict(zip(("bound_ms", "bound_by"),
+                         superstep_bound(*args[:2], *args[6:])))})
 
     for E, W in SCAN_SHAPES:
         vals = words_to_tensor(
@@ -471,6 +656,7 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
     from repro_torch import kernels
     from repro_torch.core.engines import make_engine
     from repro_torch.core.rpq import RingRPQ
+    from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import ops as kops
     t0 = time.perf_counter()
     engine = make_engine(graph, device=device)
@@ -531,6 +717,8 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
         "kernel_tasks": sum(s.kernel_tasks for s in stats),
         "bundle_kernel_batches": engine.bundle_kernel_batches,
         "max_tasks_per_launch": max(task_counts, default=0),
+        "nfa_step_layout": knfa.layout(capture["X"].shape[1])
+        if capture and "X" in capture else None,
         "answers": sum(len(a) for a in answers),
         "activations": sum(s.node_state_activations for s in stats),
         **busy,
@@ -608,6 +796,18 @@ def phase_serving(ring, queries, answers_epoch0, seed: int = 5):
 
 
 # -- phase 4 -----------------------------------------------------------------
+# launch counts the packed path reports: its kernel, and the two it
+# replaced, which it must no longer launch
+PACKED_PATH_COUNTS = ("packed_superstep", "nfa_step", "segment_or")
+
+
+def check_packed_launches(launches: dict, path: str) -> None:
+    if launches["packed_superstep"] <= 0:
+        fail(f"{path} launched no packed_superstep kernel")
+    for k in ("nfa_step", "segment_or"):
+        if launches[k]:
+            fail(f"{path} launched {k}, which packed_superstep replaces")
+
 def phase_oracle(device: str, num_queries: int = 8):
     """A smaller graph's answers, from the ring engine and from the packed
     BFS, both on the card, against the brute-force oracle."""
@@ -634,9 +834,7 @@ def phase_oracle(device: str, num_queries: int = 8):
     packed = [packed_eval(dg, graph, e, s, o)[0] for e, s, o in qs]
     packed_launches = kernels.launch_counts()
     packed_s = time.perf_counter() - t0
-    if min(packed_launches["nfa_step"], packed_launches["segment_or"]) <= 0:
-        fail("the oracle phase's packed BFS launched no nfa_step or "
-             "segment_or kernel")
+    check_packed_launches(packed_launches, "the oracle phase's packed BFS")
     every_pair = {}   # expr -> all pairs: one oracle pass per expression
     for (e, s, o), res, res_packed in zip(qs, got, packed):
         if s is not None:
@@ -654,30 +852,44 @@ def phase_oracle(device: str, num_queries: int = 8):
             "kernel_batches": engine.bundle_kernel_batches,
             "kernel_launches": launches, "ring_s": ring_s,
             "packed_kernel_launches": {k: packed_launches[k] for k in
-                                       ("nfa_step", "segment_or")},
+                                       PACKED_PATH_COUNTS},
             "packed_s": packed_s}
 
 
 # -- phase 5 -----------------------------------------------------------------
 class HeaviestLaunch:
     """``packed_bfs``'s ``on_step`` hook: keeps the superstep whose
-    ``segment_or`` values have the most non-zero words (among those of
-    the largest size), with the ``nfa_step`` inputs that made them.
-    Counting costs one reduction and one host sync a superstep."""
+    transition has the most non-zero words (among those of the largest
+    size), with copies of the state it read.  The superstep's ``nfa_step``
+    input and ``segment_or`` values are not materialised on the path, so
+    the hook builds them: two gathers and an ``nfa_step`` launch, then a
+    count and a host sync.  Only the recorder's runs pay that, and they
+    come after phase 5 has read its launch counts."""
 
     def __init__(self, dg):
         self.dg = dg
         self.key = (-1, -1)
         self.largest_E = 0
-        self.nfa_step = self.segment_or = None
+        self.nfa_step = self.segment_or = self.superstep = None
 
-    def __call__(self, X, bwd, Y):
+    def __call__(self, frontier, visited, Bp, bwd):
+        import torch
+        from repro_torch.kernels import nfa_step as knfa
+        dg = self.dg
+        X = frontier.index_select(0, dg.obj) & Bp.index_select(0, dg.pred)
+        Y = knfa.nfa_step_cuda(X, bwd)
         self.largest_E = max(self.largest_E, int(X.shape[0]))
         key = (Y.numel(), int((Y != 0).sum()))
         if key > self.key:
             self.key = key
             self.nfa_step = (X, bwd)
-            self.segment_or = (Y, self.dg.subj, self.dg.num_nodes)
+            self.segment_or = (Y, dg.subj, dg.num_nodes)
+            f = frontier.clone()
+            self.superstep = (f, visited.clone(), torch.zeros_like(f),
+                              torch.zeros_like(f),
+                              torch.zeros(1, dtype=torch.int32,
+                                          device=f.device),
+                              1, Bp, bwd, dg.subj, dg.pred, dg.obj)
 
 
 def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
@@ -685,14 +897,17 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     """The packed BFS on the card over phase 2's graph: (a) the batch's
     requests, held to the ring engine's answers; (b) the hub closures
     the batch left out, through ``packed_eval`` as a user calls it, then
-    through ``packed_bfs`` alone (``in_packed_bfs_s``; apart from the
-    answer sets ``packed_eval`` builds, plus the recorder's count a
-    superstep); (c) the first of those again on the card and on the
-    host, with the plain versions, held word for word.  A profiled rerun
-    of (b) gives the card's idle share and the host ops and kernels that
-    take its time.  The launch counts cover (a) and (b) through
-    ``packed_eval``; the launch of (a) and (b) with the most non-zero
-    words is kept, and both kernels are checked and timed on it."""
+    through ``packed_bfs`` alone (``in_packed_bfs_s``: apart from the
+    answer sets ``packed_eval`` builds); (c) the first of those again on
+    the card and on the host, with the plain versions, held word for
+    word.  A profiled rerun of (b) gives the card's idle share, the host
+    ops and kernels that take its time, and the ``cudaLaunchKernel``
+    calls a superstep.  The launch counts cover (a) and (b) through
+    ``packed_eval``.  Then (a) and (b) run once more through
+    ``packed_bfs`` with the recorder, untimed, and ``packed_superstep``
+    is checked and timed on the superstep with the most non-zero
+    transition words, and ``nfa_step`` and ``segment_or`` on that
+    superstep's transition input and values."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -706,14 +921,12 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     dg = DenseGraph.from_graph(graph, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    heaviest = HeaviestLaunch(dg)
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     steps_a = 0
     for q, want in zip(queries, ring_answers):
-        got, steps = packed_eval(dg, graph, q.expr, q.subject, q.obj,
-                                 on_step=heaviest)
+        got, steps = packed_eval(dg, graph, q.expr, q.subject, q.obj)
         steps_a += steps
         if got != want:
             fail(f"packed answer of {q} differs from the ring engine's")
@@ -728,16 +941,14 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     torch.cuda.synchronize()
     hub_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    for k in ("nfa_step", "segment_or"):
-        if launches[k] <= 0:
-            fail(f"the packed path launched no {k} kernel")
+    check_packed_launches(launches, "the packed path")
 
     def bfs(q):
         return one_endpoint_bfs(graph, rx.parse(q.expr), q.subject, q.obj)
 
     t0 = time.perf_counter()
     for q, (_s, steps, _n) in zip(skipped, hub):
-        _vis, it = packed_bfs(dg, *bfs(q), on_step=heaviest)
+        _vis, it = packed_bfs(dg, *bfs(q))
         if it != steps:
             fail(f"packed_bfs of {q} took {it} supersteps, packed_eval "
                  f"{steps}")
@@ -759,20 +970,32 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     if len(checked) < HOST_CHECKS:
         fail(f"only {len(checked)} of {HOST_CHECKS} hub closures were "
              f"checked on the host")
+    host_s = time.perf_counter() - t0
 
-    # both kernels at the heaviest launch kept, as the packed path runs
-    # them; segment_or is timed in the kernels line
+    # the recorder's runs, and the three kernels at the heaviest superstep
+    heaviest = HeaviestLaunch(dg)
+    t0 = time.perf_counter()
+    for q in list(queries) + list(skipped):
+        packed_bfs(dg, *bfs(q), on_step=heaviest)
+    record_s = time.perf_counter() - t0
     X, bwd = heaviest.nfa_step
     vals, _ids, V = capture["segment_or"] = heaviest.segment_or
+    sup = capture["packed_superstep"] = heaviest.superstep
     at_launch = {
+        "packed_superstep": {
+            **superstep_check_and_time(errs, sup, "the heaviest superstep"),
+            "gather_ms": gather_ms(sup),
+            "bound": superstep_bound(*sup[:2], *sup[6:]),
+            "E": int(X.shape[0]), "V": V, "S": int(bwd.shape[0]),
+            "W": int(X.shape[1]),
+            "live_rows": int((sup[0].index_select(0, dg.obj) != 0)
+                             .any(1).sum())},
         "nfa_step": {**check_and_time(errs, "nfa_step", knfa.nfa_step_cuda,
                                       ref.nfa_step_ref, (X, bwd),
-                                      "the packed path's launch"),
+                                      "the packed path's superstep"),
                      "bound": nfa_bound(X, bwd.shape[0]),
-                     "N": int(X.shape[0]), "S": int(bwd.shape[0]),
-                     "W": int(X.shape[1])},
-        "segment_or": {"E": int(vals.shape[0]), "W": int(vals.shape[1]),
-                       "V": V, "nonzero_words": heaviest.key[1],
+                     "layout": knfa.layout(X.shape[1])},
+        "segment_or": {"nonzero_words": heaviest.key[1],
                        "nonzero_rows": int((vals != 0).any(1).sum()),
                        "bound": segment_or_bound(vals, V)}}
 
@@ -795,20 +1018,20 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
                 "request_s_median_p99_max": [float(np.median(secs)),
                                              float(np.quantile(secs, 0.99)),
                                              float(secs.max())]},
-            "host_checks": {"ran": len(checked),
-                            "seconds": time.perf_counter() - t0,
+            "host_checks": {"ran": len(checked), "seconds": host_s,
                             "runs": checked},
-            "kernel_launches": {k: launches[k] for k in
-                                ("nfa_step", "segment_or")},
+            "kernel_launches": {k: launches[k] for k in PACKED_PATH_COUNTS},
+            "recorder_s": record_s,
             "largest_E_per_launch": heaviest.largest_E,
-            "kernels_at_heaviest_launch": at_launch,
-            **packed_busy(dg, graph, skipped)}
+            "kernels_at_heaviest_superstep": at_launch,
+            **packed_busy(dg, graph, skipped, int(steps.sum()))}
 
 
-def packed_busy(dg, graph, skipped, top: int = 8):
+def packed_busy(dg, graph, skipped, supersteps: int, top: int = 8):
     """Rerun (b) under ``torch.profiler``: the card's kernel and copy
-    time against the rerun's wall time, and the ``top`` host ops (self
-    CPU time) and device kernels (self device time) of the rerun."""
+    time against the rerun's wall time, the ``top`` host ops (self CPU
+    time) and device kernels (self device time) of the rerun, and its
+    CUDA runtime launch and copy calls, per superstep too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.packed import packed_eval
@@ -831,8 +1054,13 @@ def packed_busy(dg, graph, skipped, top: int = 8):
         return [[e.key[:60], e.count, getattr(e, attr) / 1e3]
                 for e in evs[:top]]
 
+    runtime = {e.key: e.count for e in host
+               if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
     return {"profiled_hub_s": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "runtime_calls": runtime,
+            "cudaLaunchKernel_per_superstep":
+                runtime.get("cudaLaunchKernel", 0) / max(supersteps, 1),
             "top_host_ops_count_ms": rows(host, "self_cpu_time_total"),
             "top_kernels_count_ms": rows(device, "self_device_time_total")}
 
@@ -893,6 +1121,9 @@ def phase_rank(ring, capture: dict, queries: int = 1_048_576, seed: int = 9):
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
                  "src/repro/kernels/nfa_step.py:54"),
+    "packed_superstep": ("src/repro_torch/kernels/csrc/packed_superstep.cu",
+                         "src/repro/kernels/nfa_step.py:54 + "
+                         "src/repro/kernels/segment_or.py:43"),
     "segment_or": ("src/repro_torch/kernels/csrc/segment_or.cu",
                    "src/repro/kernels/segment_or.py:43"),
     "segmented_or_scan": ("src/repro_torch/kernels/csrc/segment_or.cu",
@@ -906,45 +1137,66 @@ KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
 
 def kernels_line(capture: dict, launches: dict, errs: dict):
     """One entry per kernel, timed at the largest launch of its path:
-    ``nfa_step`` at phase 2's, ``segment_or`` at phase 5's (the one with
-    the most non-zero words), the rank
-    kernels at phase 6's largest level, ``segmented_or_scan`` (on no
-    path) at phase 1's full size.  ``library_ms`` is null throughout:
-    no single PyTorch call ORs or popcounts packed words."""
+    ``nfa_step`` at phase 2's, ``packed_superstep`` at phase 5's heaviest
+    superstep (the most non-zero transition words), ``segment_or`` (on
+    no path since ``packed_superstep`` took its place) on that
+    superstep's values, the rank kernels at phase 6's largest level,
+    ``segmented_or_scan`` (on no path) at phase 1's full size.
+    ``library_ms`` is null throughout: no single PyTorch call ORs or
+    popcounts packed words."""
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_or as kseg
     X, bwd = capture["X"], capture["bwd"]
+    sup = capture["packed_superstep"]
     vals, seg_ids, V = capture["segment_or"]
     scan_vals, flags = capture["segmented_or_scan"]
     words, directory, q = capture["rank"]
+
+    def checked(name, kernel, plain, args):
+        return lambda: check_and_time(errs, name, kernel, plain, args,
+                                      "its path's input")
+
     timed = {
-        "nfa_step": (knfa.nfa_step_cuda, ref.nfa_step_ref, (X, bwd),
+        "nfa_step": (checked("nfa_step", knfa.nfa_step_cuda,
+                             ref.nfa_step_ref, (X, bwd)),
                      nfa_bound(X, bwd.shape[0]),
                      {"N": int(X.shape[0]), "S": int(bwd.shape[0]),
-                      "W": int(X.shape[1])}),
-        "segment_or": (kseg.segment_or_cuda, ref.segment_or_ref,
-                       (vals, seg_ids, V), segment_or_bound(vals, V),
+                      "W": int(X.shape[1]),
+                      "layout": knfa.layout(X.shape[1])}),
+        "packed_superstep": (
+            lambda: superstep_check_and_time(errs, sup,
+                                             "the heaviest superstep"),
+            superstep_bound(*sup[:2], *sup[6:]),
+            {"E": int(sup[8].shape[0]), "V": int(sup[0].shape[0]),
+             "S": int(sup[7].shape[0]), "W": int(sup[0].shape[1])}),
+        "segment_or": (checked("segment_or", kseg.segment_or_cuda,
+                               ref.segment_or_ref, (vals, seg_ids, V)),
+                       segment_or_bound(vals, V),
                        {"E": int(vals.shape[0]), "W": int(vals.shape[1]),
                         "V": V, "nonzero_words": int((vals != 0).sum())}),
-        "segmented_or_scan": (kseg.segmented_or_scan_cuda,
-                              ref.segmented_or_scan_ref, (scan_vals, flags),
+        "segmented_or_scan": (checked("segmented_or_scan",
+                                      kseg.segmented_or_scan_cuda,
+                                      ref.segmented_or_scan_ref,
+                                      (scan_vals, flags)),
                               scan_bound(scan_vals),
                               {"E": int(scan_vals.shape[0]),
                                "W": int(scan_vals.shape[1])}),
-        "superblock_popcounts": (krank.superblock_popcounts_cuda,
-                                 ref.superblock_popcounts_ref, (words,),
+        "superblock_popcounts": (checked("superblock_popcounts",
+                                         krank.superblock_popcounts_cuda,
+                                         ref.superblock_popcounts_ref,
+                                         (words,)),
                                  popcounts_bound(words),
                                  {"NW": int(words.shape[0])}),
-        "rank1": (krank.rank1_cuda, ref.rank1_window_ref,
-                  (words, directory, q), rank1_bound(words, directory, q),
+        "rank1": (checked("rank1", krank.rank1_cuda, ref.rank1_window_ref,
+                          (words, directory, q)),
+                  rank1_bound(words, directory, q),
                   {"NW": int(words.shape[0]), "Q": int(q.shape[0])}),
     }
     out = []
-    for name, (kernel, plain, args, (b, by), shape) in timed.items():
-        times = check_and_time(errs, name, kernel, plain, args,
-                               "its path's input")
+    for name, (measure, (b, by), shape) in timed.items():
+        times = measure()
         source, replaces = KERNEL_SOURCES[name]
         out.append({
             "name": name, "route": "cuda", "source": source,
@@ -991,6 +1243,7 @@ def main() -> int:
     emit(rank)
     kernels = kernels_line(capture, {
         "nfa_step": report["kernel_launches"],
+        "packed_superstep": packed["kernel_launches"]["packed_superstep"],
         "segment_or": packed["kernel_launches"]["segment_or"],
         **rank["kernel_launches"]}, errs)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

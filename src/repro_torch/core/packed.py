@@ -2,17 +2,19 @@
 
 Frontier and visited sets are packed state words ([V, W] uint32 bit
 patterns in int32 tensors, W = ceil(S/32)), and each superstep sweeps
-every edge of a :class:`DenseGraph` through two kernels:
+every edge of a :class:`DenseGraph` in one kernel launch
+(``kernels/packed_superstep.py``):
 
-    X = frontier[obj] & B[pred]       (gather + Fact-1 mask, torch)
-    Y = nfa_step(X, bwd)              (kernels/nfa_step.py)
-    new = segment_or(Y, subj, V)      (kernels/segment_or.py)
+    X = frontier[obj] & B[pred]       (gather + Fact-1 mask)
+    Y = T'[X]                         (the transition, as nfa_step)
+    new = OR of Y by subj & ~visited  (as segment_or, and the and-not)
 
-The loop runs on ``dg``'s device: the kernels on a CUDA device, their
-plain versions on the CPU.  One host sync a superstep, for the stop
-test.  :func:`packed_eval` answers a query with it, by the dense
-engine's rule for unsplit plans; :func:`one_endpoint_bfs` is that rule's
-automaton and start for a request with one endpoint bound.
+The loop runs on ``dg``'s device: the kernel on a CUDA device, its plain
+version on the CPU.  One 4-byte read of the kernel's flag a superstep
+is the stop test (a host sync).  :func:`packed_eval` answers a query
+with it, by the dense engine's rule for unsplit plans;
+:func:`one_endpoint_bfs` is that rule's automaton and start for a
+request with one endpoint bound.
 """
 from __future__ import annotations
 
@@ -46,9 +48,11 @@ def packed_bfs(
     on_step: Optional[Callable] = None,
 ) -> Tuple[np.ndarray, int]:
     """Returns (visited [V, W] uint32, iterations).  ``on_step``, if
-    given, is called each superstep with ``(X, bwd, Y)``: the inputs of
-    its ``nfa_step`` and the values its ``segment_or`` scatters by
-    ``dg.subj``."""
+    given, is called before each superstep with ``(frontier, visited,
+    Bp, bwd)``, the tensors that superstep reads: ``visited`` does not
+    hold the frontier's bits yet (the superstep ORs them in), and the
+    superstep's transition inputs are ``frontier[dg.obj] & Bp[dg.pred]``.
+    The hook must not write them."""
     V = dg.num_nodes
     S = g.m + 1
     W = g.nwords
@@ -61,18 +65,24 @@ def packed_bfs(
     steps = max_steps if max_steps is not None else V * S + 1
 
     subj, pred, obj = dg.subj, dg.pred, dg.obj
-    frontier = ops.words_to_tensor(planes, dev)
-    visited = frontier.clone()
+    # bufs[it % 3] is superstep it's frontier, bufs[(it + 1) % 3] its
+    # output (zero), bufs[(it + 2) % 3] the frontier before (it zeroes it)
+    bufs = [ops.words_to_tensor(planes, dev),
+            torch.zeros((V, W), dtype=torch.int32, device=dev),
+            torch.zeros((V, W), dtype=torch.int32, device=dev)]
+    visited = torch.zeros_like(bufs[1])      # trails the frontier
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
     it = 0
-    while it < steps and bool((frontier != 0).any()):
-        X = frontier.index_select(0, obj) & Bp.index_select(0, pred)
-        Y = ops.nfa_step(X, bwd)
+    active = bool(planes.any())
+    while it < steps and active:
+        frontier, nxt, spare = (bufs[(it + k) % 3] for k in range(3))
         if on_step is not None:
-            on_step(X, bwd, Y)
-        new = ops.segment_or(Y, subj, V) & ~visited
-        visited |= new
-        frontier = new
+            on_step(frontier, visited, Bp, bwd)
+        ops.packed_superstep(frontier, visited, nxt, spare, flag, it + 1,
+                             Bp, bwd, subj, pred, obj)
         it += 1
+        active = int(flag.item()) == it
+    visited |= bufs[it % 3]
     return ops.tensor_to_words(visited), it
 
 

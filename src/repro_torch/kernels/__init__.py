@@ -17,6 +17,7 @@ from typing import Dict
 
 KERNEL_MODULES = {
     "nfa_step": "nfa_step",
+    "packed_superstep": "packed_superstep",
     "segment_or": "segment_or",
     "segmented_or_scan": "segment_or",
     "superblock_popcounts": "rank_popcount",

@@ -33,7 +33,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 SOURCES = {
     "nfa_step": ("nfa_step.cu", {
-        "nfa_step_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        "nfa_step_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    }),
+    "packed_superstep": ("packed_superstep.cu", {
+        "packed_superstep_launch": ([_P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                     _P, _P, _L, _I, _I, _I, _I, _P], _I),
     }),
     "segment_or": ("segment_or.cu", {
         "segment_or_launch": ([_P, _P, _P, _L, _I, _I, _P], _I),

@@ -7,9 +7,10 @@ X = D & B[p] happens upstream), the reverse transition
     Y[t] = T'[X[t]] = OR_{j : bit j set in X[t]}  PRED[j]
 
 where PRED[j] is the packed predecessor mask of NFA state j (paper
-Eq. 2).  The kernel itself is ``csrc/nfa_step.cu`` (one thread per
-task row, walking the row's set bits; see the note there for what
-bounds it).
+Eq. 2).  The kernel itself is ``csrc/nfa_step.cu``: one thread per
+task row, walking the row's set bits, for rows narrower than
+``WARP_ROW_WORDS`` words, and one warp per row, lanes over the output
+words, for wider ones (see the note there for what bounds it).
 
 Heterogeneous batches: one launch serves tasks from *different*
 automata when their PRED tables are packed block-diagonally
@@ -33,6 +34,17 @@ from .ref import nfa_step_ref
 # ``repro_torch.kernels.reset_launch_counts``)
 launches = {"nfa_step": 0}
 
+# Rows of at least this many words take a warp each, narrower rows a
+# thread each.  At the phase-1 shapes of ``chip_smoke.py`` the warp was
+# up to 80x faster from W = 8 and at most 1.3% slower; below 8 the
+# thread was up to 35% faster at N = 16,384 (PERF.md).
+WARP_ROW_WORDS = 8
+
+
+def layout(W: int) -> str:
+    """The layout the wrapper launches for rows of ``W`` words."""
+    return "warp_per_row" if W >= WARP_ROW_WORDS else "thread_per_row"
+
 
 def _check(X: torch.Tensor, bwd: torch.Tensor) -> None:
     if X.dim() != 2 or bwd.dim() != 2:
@@ -51,11 +63,22 @@ def _check(X: torch.Tensor, bwd: torch.Tensor) -> None:
 
 
 def nfa_step_cuda(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  X: [N, W] and
-    bwd: [S, W] contiguous int32 words on one CUDA device.  Raises on
-    anything the kernel does not take and on a refused launch."""
+    """Launch the CUDA kernel on the current stream, in the layout
+    :func:`layout` picks.  X: [N, W] and bwd: [S, W] contiguous int32
+    words on one CUDA device.  Raises on anything the kernel does not
+    take and on a refused launch."""
+    return launch_layout(X, bwd, layout(X.shape[1]))
+
+
+def launch_layout(X: torch.Tensor, bwd: torch.Tensor,
+                  rows: str) -> torch.Tensor:
+    """:func:`nfa_step_cuda` in layout ``rows`` (``"thread_per_row"`` or
+    ``"warp_per_row"``), whatever W is: ``chip_smoke.py`` times both
+    layouts through this.  Counts its launch like the wrapper."""
     _check(X, bwd)
     _build.check_cuda("nfa_step_cuda", X, bwd)
+    if rows not in ("thread_per_row", "warp_per_row"):
+        raise ValueError(f"unknown nfa_step layout {rows!r}")
     N, W = X.shape
     Y = torch.empty_like(X)
     if N == 0:
@@ -64,7 +87,8 @@ def nfa_step_cuda(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.nfa_step_launch(X.data_ptr(), bwd.data_ptr(), Y.data_ptr(),
-                                 N, bwd.shape[0], W, stream)
+                                 N, bwd.shape[0], W,
+                                 int(rows == "warp_per_row"), stream)
     _build.check_launch(rc, "nfa_step")
     launches["nfa_step"] += 1
     return Y

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from . import nfa_step as _nfa
+from . import packed_superstep as _sup
 from . import rank_popcount as _rank
 from . import segment_or as _seg
 
@@ -87,6 +88,22 @@ def segment_or(vals: torch.Tensor, seg_ids: torch.Tensor,
     sorted."""
     return _route("segment_or", _seg.segment_or_cuda, _seg.segment_or_plain,
                   vals)(vals, seg_ids, num_segments)
+
+
+def packed_superstep(f: torch.Tensor, v: torch.Tensor, nxt: torch.Tensor,
+                     spare: torch.Tensor, flag: torch.Tensor, stamp: int,
+                     Bp: torch.Tensor, bwd: torch.Tensor, subj: torch.Tensor,
+                     pred: torch.Tensor, obj: torch.Tensor) -> None:
+    """One packed BFS superstep, in place: ``v |= f``, then
+    ``nxt |= segment_or(nfa_step(f[obj] & Bp[pred], bwd), subj, V) & ~v``
+    (nxt zero on entry), ``spare`` zeroed, and ``flag[0] = stamp`` if
+    that put a non-zero word into nxt.  f, v, nxt, spare: four [V, W]
+    int32 word buffers; Bp [L, W], bwd [S, W]; subj, pred, obj [E] int32
+    ids in range; flag [1] int32.  See ``kernels/packed_superstep.py``
+    for the buffer rotation a caller runs."""
+    _route("packed_superstep", _sup.packed_superstep_cuda,
+           _sup.packed_superstep_plain, f)(f, v, nxt, spare, flag, stamp,
+                                           Bp, bwd, subj, pred, obj)
 
 
 def segmented_or_scan(vals: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:

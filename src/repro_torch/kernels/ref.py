@@ -96,6 +96,27 @@ def segmented_or_scan_ref(vals: torch.Tensor,
     return narrow(out)
 
 
+# -- packed BFS superstep ----------------------------------------------------
+
+def packed_superstep_ref(f: torch.Tensor, v: torch.Tensor, nxt: torch.Tensor,
+                         spare: torch.Tensor, flag: torch.Tensor, stamp: int,
+                         Bp: torch.Tensor, bwd: torch.Tensor,
+                         subj: torch.Tensor, pred: torch.Tensor,
+                         obj: torch.Tensor) -> None:
+    """One packed BFS superstep, in place (see
+    ``kernels/packed_superstep.py``): the gathers, :func:`nfa_step_ref`,
+    :func:`segment_or_ref` and the and-not.  f, v, nxt, spare: [V, W]
+    int32 words, nxt zero on entry; flag: [1] int32; Bp [L, W], bwd
+    [S, W] int32 words; subj, pred, obj: [E] int32 ids in range."""
+    X = f.index_select(0, obj) & Bp.index_select(0, pred)
+    v |= f
+    new = segment_or_ref(nfa_step_ref(X, bwd), subj, f.shape[0]) & ~v
+    nxt |= new
+    spare.zero_()
+    if bool((new != 0).any()):
+        flag.fill_(stamp)
+
+
 # -- rank -----------------------------------------------------------------------
 
 SB_WORDS = 16  # 16 x 32-bit words = 512-bit superblocks

@@ -22,6 +22,7 @@ from repro_torch.core.engines import Query  # noqa: E402
 from repro_torch.core.rpq import QueryStats, RingRPQ  # noqa: E402
 from repro_torch.core.scheduler import SlotScheduler  # noqa: E402
 from repro_torch.kernels import nfa_step as knfa, ops  # noqa: E402
+from repro_torch.kernels import packed_superstep as ksup  # noqa: E402
 from repro_torch.kernels import rank_popcount as krank  # noqa: E402
 from repro_torch.kernels import segment_or as kseg  # noqa: E402
 
@@ -55,6 +56,34 @@ def test_nfa_step_cuda_matches_plain(cuda_device, N, S):
     want = ops.tensor_to_words(ops.nfa_step(ops.words_to_tensor(X, "cpu"),
                                             ops.words_to_tensor(bwd, "cpu")))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,W", [
+    (1000, 200, knfa.WARP_ROW_WORDS - 1), (1000, 200, knfa.WARP_ROW_WORDS),
+    (305, 4096, 128), (77, 6000, 200), (3000, 17, 1), (40, 70, 33)])
+def test_nfa_step_layouts_match_plain(cuda_device, N, S, W):
+    """Both layouts at every shape, the wrapper's pick on both sides of
+    its threshold and at the ring batch's launch (N = 305, S = 4,096,
+    W = 128), rows with bits at and above S set; past 128 words a lane
+    holds more than one pass of output words (W = 200)."""
+    X, bwd = _inputs(np.random.default_rng(N * S + W), N, S, W)
+    X[:, :] |= np.uint32(1 << 31)          # padding bits where S < 32 W
+    Xc = ops.words_to_tensor(X, cuda_device)
+    bc = ops.words_to_tensor(bwd, cuda_device)
+    want = ops.tensor_to_words(ops.nfa_step(ops.words_to_tensor(X, "cpu"),
+                                            ops.words_to_tensor(bwd, "cpu")))
+    tk.reset_launch_counts()
+    for rows in ("thread_per_row", "warp_per_row"):
+        got = knfa.launch_layout(Xc, bc, rows)
+        np.testing.assert_array_equal(ops.tensor_to_words(got), want)
+    assert tk.launch_counts()["nfa_step"] == 2     # each launch counts
+    tk.reset_launch_counts()
+    np.testing.assert_array_equal(ops.tensor_to_words(ops.nfa_step(Xc, bc)),
+                                  want)
+    assert tk.launch_counts()["nfa_step"] == 1
+    assert knfa.layout(W) == ("warp_per_row" if W >= knfa.WARP_ROW_WORDS
+                              else "thread_per_row")
 
 
 @pytest.mark.cuda
@@ -272,6 +301,120 @@ def test_packed_bfs_on_card_matches_host(cuda_device):
         np.testing.assert_array_equal(vis, want_vis)
         assert it == want_it
     counts = tk.launch_counts()
-    assert counts["nfa_step"] > 0 and counts["segment_or"] > 0
+    assert counts["packed_superstep"] > 0
+    assert counts["nfa_step"] == counts["segment_or"] == 0
     for e, s, o in [("0/1*", None, 7), ("(0|2)+/^1", 3, None)]:
         assert packed_eval(card, g, e, s, o) == packed_eval(host, g, e, s, o)
+
+
+def _superstep_arrays(rng, V, E, S, L, live, ordered):
+    """One superstep's numpy inputs: hub-law subjects (the scale-free
+    fixture's node law), sorted or not, frontier rows live with share
+    ``live`` and bits at and above S set in them."""
+    W = (S + 31) // 32
+    wn = 1.0 / np.arange(1, V + 1) ** 0.8
+    subj = rng.choice(V, size=E, p=wn / wn.sum()).astype(np.int32)
+    if ordered:
+        subj.sort()
+    pred = rng.integers(0, L, E).astype(np.int32)
+    obj = rng.integers(0, V, E).astype(np.int32)
+    f = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    f[:, -1] |= np.uint32(1 << 31)
+    f[rng.random(V) >= live] = 0
+    v = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    v[rng.random((V, W)) < 0.8] = 0
+    Bp = rng.integers(0, 2**32, (L, W), dtype=np.uint32)
+    bwd = rng.integers(0, 2**32, (S, W), dtype=np.uint32)
+    spare = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    return f, v, spare, Bp, bwd, subj, pred, obj
+
+
+def _superstep_on(dev, f, v, spare, Bp, bwd, subj, pred, obj, stamp=3):
+    t = [_on(dev, a) for a in (f, v, spare, Bp, bwd, subj, pred, obj)]
+    nxt = torch.zeros_like(t[0])
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    ops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, *t[3:])
+    return [a.cpu().numpy() for a in (t[0], t[1], nxt, t[2], flag)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,E,S,L,live,ordered", [
+    (1, 1, 1, 1, 1.0, True), (50, 1000, 5, 8, 0.3, True),
+    (2000, 30_001, 33, 8, 0.1, True), (2000, 30_001, 33, 8, 1.0, True),
+    (5000, 100_003, 20, 128, 0.05, False), (300, 4000, 40, 6, 0.0, True),
+    (200_000, 1_000_003, 5, 128, 0.01, True),
+    (100_000, 600_001, 50, 128, 1.0, True),
+    (400, 5000, 1280, 8, 0.5, True)])
+def test_packed_superstep_cuda_matches_plain(cuda_device, V, E, S, L, live,
+                                             ordered):
+    """Hub-law ids, W = 1 and 2, an empty frontier, unsorted subjects, E
+    not a multiple of a block and past one pass of the grid, and wide
+    tables (S = 1,280: 206 KB, W = 40, past one output chunk); the flag
+    too."""
+    arrays = _superstep_arrays(np.random.default_rng(V + E + S), V, E, S,
+                               L, live, ordered)
+    tk.reset_launch_counts()
+    got = _superstep_on(cuda_device, *arrays)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["packed_superstep"] == 1
+    want = _superstep_on("cpu", *arrays)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert int(got[4][0]) == (3 if got[2].any() else 0)
+    assert (int(got[4][0]) == 3) == (live > 0) or V == 1
+
+
+@pytest.mark.cuda
+def test_packed_superstep_cuda_rejects_bad_inputs(cuda_device):
+    z = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    bwd = torch.zeros((5, 2), dtype=torch.int32, device=cuda_device)
+
+    def state():
+        return [torch.zeros_like(z) for _ in range(4)]
+
+    with pytest.raises(ValueError):                      # not contiguous
+        ksup.packed_superstep_cuda(*state()[:3], torch.zeros(
+            (2, 4), dtype=torch.int32, device=cuda_device).t(), flag, 1, z,
+            bwd, ids, ids, ids)
+    with pytest.raises(ValueError):                      # two devices
+        ksup.packed_superstep_cuda(*state(), flag.cpu(), 1, z, bwd, ids,
+                                   ids, ids)
+    with pytest.raises(TypeError):
+        ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd.long(), ids,
+                                   ids, ids)
+    with pytest.raises(ValueError):                      # one buffer twice
+        f, v, nxt, _ = state()
+        ksup.packed_superstep_cuda(f, v, nxt, v, flag, 1, z, bwd, ids, ids,
+                                   ids)
+    with pytest.raises(ValueError):                      # W disagrees
+        ksup.packed_superstep_cuda(*state(), flag, 1, z[:, :1], bwd, ids,
+                                   ids, ids)
+    # no edges: the pass still visits the frontier and clears spare
+    f, v, nxt, spare = state()
+    f[1, 0] = 5
+    spare.fill_(9)
+    ksup.packed_superstep_cuda(f, v, nxt, spare, flag, 1, z, bwd, ids[:0],
+                               ids[:0], ids[:0])
+    assert int(v[1, 0]) == 5 and not bool(spare.any())
+    assert not bool(nxt.any()) and int(flag[0]) == 0
+
+
+@pytest.mark.cuda
+def test_packed_bfs_on_card_matches_host_at_max_steps(cuda_device):
+    """Visited words and supersteps at max_steps 0, 1 and 2 and with a
+    start that has no live edge: the card's loop stops where the host's
+    does, on the kernel's flag."""
+    g = fixtures.scale_free_graph(2_000, 4, 8_000, seed=8)
+    card = DenseGraph.from_graph(g, device=cuda_device)
+    host = DenseGraph.from_graph(g, device="cpu")
+    auto = Glushkov.from_ast(rx.parse("(0|1)+/^2"), g.resolve_lit)
+    isolated = np.setdiff1d(np.arange(g.num_nodes), g.completed_triples()[2])
+    starts = [[0, 1, 2], isolated[:2], np.zeros(0, dtype=np.int64)]
+    for start in starts:
+        for steps in (0, 1, 2, None):
+            vis, it = packed_bfs(card, auto, start, max_steps=steps)
+            want_vis, want_it = packed_bfs(host, auto, start, max_steps=steps)
+            np.testing.assert_array_equal(vis, want_vis)
+            assert it == want_it

@@ -24,7 +24,10 @@ from repro.kernels.segment_or import (  # noqa: E402
     TILE_E as J_TILE_E, segmented_or_scan as j_scan_tiles)
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.kernels import ops as tops, ref as tref  # noqa: E402
+from repro.core.dense import DenseGraph as JDenseGraph  # noqa: E402
+from repro.core.fixtures import random_graph  # noqa: E402
 from repro_torch.kernels import nfa_step as tnfa  # noqa: E402
+from repro_torch.kernels import packed_superstep as tsup  # noqa: E402
 from repro_torch.kernels import rank_popcount as trank  # noqa: E402
 from repro_torch.kernels import segment_or as tseg  # noqa: E402
 
@@ -142,6 +145,8 @@ def test_plain_version_does_not_count_launches():
         np.random.default_rng(6), 600, 0.5)[0], "cpu")
     tops.rank1(words, tops.build_rank_directory(words),
                torch.tensor([0, 7, 600], dtype=torch.int32))
+    inputs = _superstep_inputs("random", 20, 40, 5, 0.5)
+    _port_superstep(*inputs)
     assert tk.launch_counts() == {k: 0 for k in tk.KERNELS}
 
 
@@ -335,3 +340,108 @@ def test_new_wrappers_check_inputs_and_never_fall_back():
         tops.rank1(words, directory, q.to(torch.int64))
     with pytest.raises(ValueError):
         tops.rank1(words, directory[:0], q)
+
+
+# -- packed_superstep -----------------------------------------------------------
+
+def _superstep_inputs(edges, V, E, S, live, seed=0):
+    """Frontier, visited, table and edge arrays of one packed BFS
+    superstep, made with numpy.  ``edges``: "random" takes the completed
+    edges of ``random_graph`` (sorted by subject, as ``DenseGraph``
+    keeps them); "hub" draws E subjects with the scale-free fixture's
+    node law (weight rank**-0.8), sorted, over the first 3/4 of the nodes
+    (the rest isolated).  ``live``: share of frontier rows with a
+    non-zero word; every frontier word has bits at and above S too."""
+    rng = np.random.default_rng(seed)
+    W = (S + 31) // 32
+    if edges == "random":
+        dg = JDenseGraph.from_graph(random_graph(V, 3, E, seed=seed,
+                                                 pred_zipf=False))
+        subj, pred, obj = (np.asarray(a) for a in (dg.subj, dg.pred, dg.obj))
+        L = dg.num_labels
+    else:
+        L, used = 6, 3 * V // 4
+        wn = 1.0 / np.arange(1, used + 1) ** 0.8
+        subj = np.sort(rng.choice(used, size=E, p=wn / wn.sum()))
+        pred = rng.integers(0, L, E)
+        obj = rng.integers(0, used, E)
+    assert S < 32 * W
+    f = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    f[:, -1] |= np.uint32(1 << 31)            # a bit >= S in every row
+    f[rng.random(V) >= live] = 0
+    v = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    v[rng.random((V, W)) < 0.7] = 0
+    Bp = rng.integers(0, 2**32, (L, W), dtype=np.uint32)
+    bwd = rng.integers(0, 2**32, (S, W), dtype=np.uint32)
+    spare = rng.integers(0, 2**32, (V, W), dtype=np.uint32)
+    return (f, v, spare, Bp, bwd, subj.astype(np.int32),
+            pred.astype(np.int32), obj.astype(np.int32))
+
+
+def _port_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp=7):
+    """The port's superstep on CPU copies: (v, nxt, spare, flag) after."""
+    t = [tops.words_to_tensor(a, "cpu") for a in (f, v, spare, Bp, bwd)]
+    ids = [torch.from_numpy(a) for a in (subj, pred, obj)]
+    nxt = torch.zeros_like(t[0])
+    flag = torch.zeros(1, dtype=torch.int32)
+    tops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, t[3], t[4],
+                          *ids)
+    np.testing.assert_array_equal(tops.tensor_to_words(t[0]), f)
+    return (tops.tensor_to_words(t[1]), tops.tensor_to_words(nxt),
+            tops.tensor_to_words(t[2]), int(flag[0]))
+
+
+@pytest.mark.parametrize("edges,V,E,S,live", [
+    ("random", 40, 150, 5, 0.3), ("random", 60, 300, 33, 0.3),
+    ("hub", 80, 400, 20, 0.3), ("hub", 80, 400, 33, 1.0),
+    ("hub", 50, 200, 33, 0.0), ("random", 30, 100, 12, 0.0)])
+def test_packed_superstep_matches_reference(edges, V, E, S, live):
+    """Word for word against the JAX package's superstep body: the
+    gathers, ``ops.nfa_step`` (Pallas, interpret mode), ``ops.segment_or``
+    and the and-not, with the JAX loop's visited ``v | f``."""
+    f, v, spare, Bp, bwd, subj, pred, obj = _superstep_inputs(
+        edges, V, E, S, live, seed=V + E + S)
+    vis = v | f
+    X = jnp.asarray(f)[obj] & jnp.asarray(Bp)[pred]
+    Y = jops.nfa_step(X, jnp.asarray(bwd))
+    want = np.asarray(jops.segment_or(Y, subj, V)) & ~vis
+    got_v, nxt, got_spare, flag = _port_superstep(f, v, spare, Bp, bwd,
+                                                  subj, pred, obj)
+    np.testing.assert_array_equal(nxt, want)
+    np.testing.assert_array_equal(got_v, vis)
+    assert not got_spare.any()
+    assert flag == (7 if want.any() else 0)
+    assert bool(want.any()) == (live > 0)
+
+
+def test_packed_superstep_wrappers_check_inputs_and_never_fall_back():
+    z = torch.zeros((4, 1), dtype=torch.int32)
+    ids = torch.zeros(3, dtype=torch.int32)
+    flag = torch.zeros(1, dtype=torch.int32)
+    bwd = torch.zeros((2, 1), dtype=torch.int32)
+
+    def state():
+        return [torch.zeros_like(z) for _ in range(4)]
+
+    with pytest.raises(ValueError):       # the CUDA wrapper wants CUDA
+        tsup.packed_superstep_cuda(*state(), flag, 1, z, bwd, ids, ids, ids)
+    with pytest.raises(TypeError):
+        tops.packed_superstep(*state(), flag, 1, z, bwd, ids.long(), ids,
+                              ids)
+    with pytest.raises(ValueError):       # state buffers of two shapes
+        tops.packed_superstep(*state()[:3], z[:2], flag, 1, z, bwd, ids,
+                              ids, ids)
+    with pytest.raises(ValueError):       # one buffer twice
+        f, v, nxt, _ = state()
+        tops.packed_superstep(f, v, nxt, f, flag, 1, z, bwd, ids, ids, ids)
+    with pytest.raises(ValueError):       # table wider than the words
+        tops.packed_superstep(*state(), flag, 1, z,
+                              torch.zeros((33, 1), dtype=torch.int32), ids,
+                              ids, ids)
+    with pytest.raises(ValueError):       # edge ids of two lengths
+        tops.packed_superstep(*state(), flag, 1, z, bwd, ids, ids[:2], ids)
+    with pytest.raises(ValueError):       # no third device kind
+        tops.packed_superstep(*[t.to("meta") for t in state()],
+                              flag.to("meta"), 1, z.to("meta"),
+                              bwd.to("meta"), ids.to("meta"),
+                              ids.to("meta"), ids.to("meta"))

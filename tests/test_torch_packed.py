@@ -25,7 +25,7 @@ from repro_torch.core.glushkov import Glushkov  # noqa: E402
 from repro_torch.core.packed import (  # noqa: E402
     answers_from_visited, one_endpoint_bfs, packed_bfs, packed_eval,
     packed_tables)
-from repro_torch.kernels.ref import nfa_step_ref  # noqa: E402
+from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref  # noqa: E402
 from repro_torch.core.ring import LabeledGraph  # noqa: E402
 
 
@@ -87,6 +87,20 @@ def test_packed_bfs_max_steps_matches_reference(max_steps):
     assert it == want_it == min(it, max_steps)
 
 
+def test_packed_bfs_start_without_live_edge_or_start_matches_reference():
+    """A start node that is no edge's object steps once and adds nothing;
+    no start at all steps zero times, as the JAX loop's first test."""
+    V, P, E, seed, expr = 12, 2, 6, 41, "0/1*"
+    g = random_graph(V, P, E, seed=seed, pred_zipf=False)
+    idle = sorted(set(range(V)) - set(g.completed_triples()[2].tolist()))
+    assert idle
+    for starts in ([idle[0]], idle[:3], []):
+        _g, _jg, (want_vis, want_it), (vis, it) = _both(
+            V, P, E, seed, expr, np.array(starts, dtype=np.int64))
+        np.testing.assert_array_equal(vis, want_vis)
+        assert it == want_it == (1 if starts else 0)
+
+
 def test_dense_graph_arrays_match_reference():
     for V, P, E, seed, _expr in CASES:
         g = random_graph(V, P, E, seed=seed, pred_zipf=False)
@@ -118,19 +132,26 @@ def test_packed_tables_have_no_silent_cpu_fallback():
 
 
 def test_packed_bfs_on_step_sees_every_superstep():
-    """The hook gets each superstep's ``nfa_step`` inputs and output, on
-    every edge, and leaves the result as it was (the W = 2 case)."""
+    """The hook gets, before each superstep, the frontier, the visited
+    words it does not yet hold, and the tables: the transition of their
+    ``f[obj] & Bp[pred]`` ORed by subject is the next call's frontier.
+    The hook leaves the result as it was (the W = 2 case)."""
     V, P, E, seed, expr = CASES[-1]
     tg = convert.graph_from_reference(
         random_graph(V, P, E, seed=seed, pred_zipf=False))
     dg = DenseGraph.from_graph(tg, device="cpu")
     pg = Glushkov.from_ast(trx.parse(expr), tg.resolve_lit)
-    seen = []
+    seen, want_next = [], []
 
-    def hook(X, bwd, Y):
-        assert X.shape == Y.shape == (dg.subj.numel(), pg.nwords)
+    def hook(frontier, visited, Bp, bwd):
+        assert frontier.shape == visited.shape == (V, pg.nwords)
         assert bwd.shape == (pg.m + 1, pg.nwords)
-        assert torch.equal(Y, nfa_step_ref(X, bwd))
+        assert not bool((frontier & visited).any())
+        if want_next:
+            assert torch.equal(frontier, want_next.pop())
+        X = frontier.index_select(0, dg.obj) & Bp.index_select(0, dg.pred)
+        Y = nfa_step_ref(X, bwd)
+        want_next.append(segment_or_ref(Y, dg.subj, V) & ~(visited | frontier))
         seen.append(int((Y != 0).sum()))
 
     vis, it = packed_bfs(dg, pg, [0], on_step=hook)
