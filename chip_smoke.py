@@ -15,7 +15,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      CUDA events (median of 20 runs); ``nfa_step`` in both its layouts
      (a thread or a warp per row), and ``packed_superstep`` at the full
      size with 1% and 100% of the frontier rows live, beside the
-     unfused superstep it replaced (``unfused_ms``);
+     unfused superstep it replaced (``unfused_ms``), and with R = 16 BFS
+     rows (the dense engine's batch);
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
@@ -48,9 +49,18 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      neither of the other two (phase 4's packed BFS too);
   6. rank: every level of the ring's wavelet trees through the rank
      kernels: the directory must equal the level's ``sb_rank``, and
-     1,048,576 random ranks the host ``BitVector.rank1``.
+     1,048,576 random ranks the host ``BitVector.rank1``;
+  7. dense path: ``make_engine(graph, kind="dense")`` on phase 2's graph
+     answers phase 2's requests through ``eval_many`` (equal to the
+     ring's) and the hub closures, one request a call and in one batch
+     (equal to phase 5's); two hub closures under a 1 s deadline; a
+     mixed batch again on the host with the plain version (equal answers
+     and supersteps); ANALYZE of one hub closure; a profiled rerun
+     (idle share, ``cudaLaunchKernel`` and flag reads a superstep); a
+     ``SlotScheduler`` over the engine as phase 3.  The path must launch
+     ``packed_superstep`` and neither ``nfa_step`` nor ``segment_or``.
 
-Each of phases 2-6 sets the launch counts to 0 just before its path and
+Each of phases 2-7 sets the launch counts to 0 just before its path and
 prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -103,10 +113,16 @@ FULL_W = (1, 2, 4)
 # launches, whose heaviest phase 5 times, run at 5-8.5%
 SPARSE_WORDS = 0.01
 SCAN_SHAPES = [(2_500, 2), (FULL_E, 1)]
-# packed_superstep at the full size: (S, share of live frontier rows,
-# law of the objects), with the 2P = 128 labels of phase 2's graph
-SUPERSTEP_SHAPES = [(20, 0.01, "hub"), (20, 1.0, "hub"), (40, 0.01, "hub"),
-                    (40, 1.0, "hub"), (20, 0.01, "uniform"), (20, 0.0, "hub")]
+# packed_superstep at the full size: (R rows, S, share of live frontier
+# rows, law of the objects), with the 2P = 128 labels of phase 2's graph;
+# R = 16 is the dense engine's batch of rows (source_batch), S = 8 and 16
+# the state widths its padded buckets take on phase 7's requests
+SUPERSTEP_SHAPES = [(1, 20, 0.01, "hub"), (1, 20, 1.0, "hub"),
+                    (1, 40, 0.01, "hub"), (1, 40, 1.0, "hub"),
+                    (1, 20, 0.01, "uniform"), (1, 20, 0.0, "hub"),
+                    (16, 8, 0.01, "hub"), (16, 16, 0.01, "hub"),
+                    (16, 8, 0.0, "hub")]
+ROWS_TIMED = 16           # the kernels line's entry at R rows: the first
 FULL_L = 128
 RANK_BITS = (100, 515, 8_192, 40_000, FULL_E)
 RANK_QUERIES = (4_096, 1_048_576)
@@ -198,28 +214,36 @@ def segment_or_bound(vals, num_segments: int):
 
 
 def superstep_bound(f, v, Bp, bwd, subj, pred, obj):
-    """What one packed_superstep must move, from these inputs: every
-    edge's obj and every frontier word (4*E + 4*V*W); the pred of each
-    row whose frontier word below S is non-zero and the subj of each row
-    whose transition is non-zero (4 each); at each word the transition
-    reaches, v read (4) and, where the mask leaves bits, nxt written
-    (4); at each non-zero frontier word v read and written (8); spare
-    written (4*V*W); the tables once.  Operations: W ORs per set bit of
-    X below S."""
+    """What one packed_superstep of R rows ([R, V, W] state, [R, L, W]
+    and [R, S, W] tables) must move, from these inputs: every edge's obj
+    once and every frontier word (4*E + 4*R*V*W); the pred of each edge
+    whose frontier word below S is non-zero in some row and the subj of
+    each edge whose transition is non-zero in some row (4 each); at each
+    word a row's transition reaches, v read (4) and, where the mask
+    leaves bits, nxt written (4); at each non-zero frontier word v read
+    and written (8); spare written (4*R*V*W); the tables once.
+    Operations: W ORs per set bit of X below S, over the rows."""
+    import torch
     from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref
     E = obj.shape[0]
-    (V, W), S, L = f.shape, bwd.shape[0], Bp.shape[0]
-    fo = f.index_select(0, obj)
-    rows_f = int((fo[:, :(S + 31) // 32] != 0).any(1).sum())
-    X = fo & Bp.index_select(0, pred)
-    Y = nfa_step_ref(X, bwd)
-    rows_y = int((Y != 0).any(1).sum())
-    reach = segment_or_ref(Y, subj, V)
-    targets = int((reach != 0).sum())
-    written = int(((reach & ~(v | f)) != 0).sum())
-    n_bytes = (4 * E + 8 * V * W + 4 * (rows_f + rows_y + targets + written)
-               + 8 * int((f != 0).sum()) + 4 * (L + S) * W)
-    set_bits = int(_set_bits_below(X, S))
+    (R, V, W), S, L = f.shape, bwd.shape[1], Bp.shape[1]
+    live_f = torch.zeros(E, dtype=torch.bool, device=f.device)
+    live_y = torch.zeros_like(live_f)
+    targets = written = set_bits = 0
+    for r in range(R):
+        fo = f[r].index_select(0, obj)
+        live_f |= (fo[:, :(S + 31) // 32] != 0).any(1)
+        X = fo & Bp[r].index_select(0, pred)
+        Y = nfa_step_ref(X, bwd[r])
+        live_y |= (Y != 0).any(1)
+        reach = segment_or_ref(Y, subj, V)
+        targets += int((reach != 0).sum())
+        written += int(((reach & ~(v[r] | f[r])) != 0).sum())
+        set_bits += int(_set_bits_below(X, S))
+    n_bytes = (4 * E + 8 * R * V * W
+               + 4 * (int(live_f.sum()) + int(live_y.sum()) + targets
+                      + written)
+               + 8 * int((f != 0).sum()) + 4 * R * (L + S) * W)
     return bound(n_bytes, set_bits * W, INT32_OPS_PER_S)
 
 
@@ -326,7 +350,8 @@ def superstep_check_and_time(errs: dict, args, where) -> dict:
     spare and the flag after.  Then both timed in place on a further
     copy: a repeat on the state a superstep leaves does the same work
     (v already holds f, the same words are ORed into nxt again).  Beside
-    them, the unfused composition the pass replaced (``unfused_ms``)."""
+    them, for one row, the unfused composition the pass replaced
+    (``unfused_ms``)."""
     import torch
     from repro_torch.kernels import packed_superstep as ksup
     from repro_torch.kernels import ref
@@ -349,10 +374,12 @@ def superstep_check_and_time(errs: dict, args, where) -> dict:
     def kernel():
         ksup.packed_superstep_cuda(*copy, stamp, *tables)
 
-    return {"max_abs_err": err, "ms": time_ms(kernel),
-            "plain_ms": time_ms(lambda: ref.packed_superstep_ref(
-                *copy, stamp, *tables)),
-            "unfused_ms": unfused_ms(args, want[2], where)}
+    out = {"max_abs_err": err, "ms": time_ms(kernel),
+           "plain_ms": time_ms(lambda: ref.packed_superstep_ref(
+               *copy, stamp, *tables))}
+    if state[0].shape[0] == 1:
+        out["unfused_ms"] = unfused_ms(args, want[2][0], where)
+    return out
 
 
 def unfused_ms(args, want_next, where) -> float:
@@ -365,8 +392,9 @@ def unfused_ms(args, want_next, where) -> float:
     import torch
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import segment_or as kseg
-    f, v = args[0], args[1]
-    Bp, bwd, subj, pred, obj = args[6:]
+    f, v = args[0][0], args[1][0]
+    Bp, bwd = args[6][0], args[7][0]
+    subj, pred, obj = args[8:]
     visited = v | f                  # the unfused loop's visited holds f
 
     def step():
@@ -408,18 +436,20 @@ def nfa_layouts(X, bwd) -> dict:
 
 def gather_ms(args) -> float:
     """Time of torch's ``index_select`` of the frontier rows every edge
-    reads (``f[obj]``) on a superstep's arguments: a yardstick for the
-    part of the edge pass no design that reads every edge's frontier
-    word avoids."""
+    reads (``f[r][obj]`` for every row r) on a superstep's arguments: a
+    yardstick for the part of the edge pass no design that reads every
+    edge's frontier word avoids."""
     f, obj = args[0], args[10]
-    return time_ms(lambda: f.index_select(0, obj))
+    return time_ms(lambda: f.index_select(1, obj))
 
 
-def _superstep_state(rng, S: int, live: float, hubs, objects: str):
-    """packed_superstep arguments at the packed path's full size: hub-law
-    subjects (sorted, as ``DenseGraph`` keeps them), objects by the same
-    law (``"hub"``) or uniform, uniform labels, a frontier with ``live``
-    of its rows non-zero, a sparse visited set, random tables."""
+def _superstep_state(rng, S: int, live: float, hubs, objects: str,
+                     rows: int = 1):
+    """packed_superstep arguments at the packed path's full size, with
+    ``rows`` BFS rows: hub-law subjects (sorted, as ``DenseGraph`` keeps
+    them), objects by the same law (``"hub"``) or uniform, uniform
+    labels, frontiers with ``live`` of their rows non-zero, sparse
+    visited sets, random tables (each row its own)."""
     import numpy as np
     import torch
     from repro_torch.kernels.ops import words_to_tensor
@@ -435,14 +465,15 @@ def _superstep_state(rng, S: int, live: float, hubs, objects: str):
     def ids(a):
         return torch.from_numpy(a.astype(np.int32)).to("cuda")
 
-    f = words((FULL_V, W), live)
-    v = words((FULL_V, W), 0.2) & ~f
+    f = words((rows * FULL_V, W), live).reshape(rows, FULL_V, W)
+    v = words((rows * FULL_V, W), 0.2).reshape(rows, FULL_V, W) & ~f
     nxt = torch.zeros_like(f)
-    spare = words((FULL_V, W), 1.0)
+    spare = words((rows * FULL_V, W), 1.0).reshape(rows, FULL_V, W)
     flag = torch.zeros(1, dtype=torch.int32, device="cuda")
-    return (f, v, nxt, spare, flag, 1, words((FULL_L, W), 1.0),
-            words((S, W), 1.0), ids(hubs), ids(rng.integers(0, FULL_L,
-                                                             FULL_E)),
+    return (f, v, nxt, spare, flag, 1,
+            words((rows * FULL_L, W), 1.0).reshape(rows, FULL_L, W),
+            words((rows * S, W), 1.0).reshape(rows, S, W),
+            ids(hubs), ids(rng.integers(0, FULL_L, FULL_E)),
             ids(rng.permutation(hubs) if objects == "hub"
                 else rng.integers(0, FULL_V, FULL_E)))
 
@@ -504,16 +535,20 @@ def phase_kernels(errs: dict, capture: dict):
                      ref.segment_or_ref, (vals, ids(seg.astype(np.int32)), V),
                      segment_or_bound(vals, V), E=E, W=W, V=V, values=values)
 
-    for S, live, objects in SUPERSTEP_SHAPES:
-        args = _superstep_state(rng, S, live, hubs, objects)
-        emit({"phase": "kernel_check", "kernel": "packed_superstep",
-              "E": FULL_E, "V": FULL_V, "L": FULL_L, "S": S,
-              "W": int(args[0].shape[1]), "live_rows": live,
-              "objects": objects,
-              **superstep_check_and_time(errs, args, (S, live, objects)),
-              "gather_ms": gather_ms(args),
-              **dict(zip(("bound_ms", "bound_by"),
-                         superstep_bound(*args[:2], *args[6:])))})
+    for R, S, live, objects in SUPERSTEP_SHAPES:
+        args = _superstep_state(rng, S, live, hubs, objects, rows=R)
+        line = {"phase": "kernel_check", "kernel": "packed_superstep",
+                "R": R, "E": FULL_E, "V": FULL_V, "L": FULL_L, "S": S,
+                "W": int(args[0].shape[2]), "live_rows": live,
+                "objects": objects,
+                **superstep_check_and_time(errs, args,
+                                           (R, S, live, objects)),
+                "gather_ms": gather_ms(args),
+                **dict(zip(("bound_ms", "bound_by"),
+                           superstep_bound(*args[:2], *args[6:])))}
+        emit(line)
+        if R == ROWS_TIMED and "rows" not in capture:
+            capture["rows"] = line
 
     for E, W in SCAN_SHAPES:
         vals = words_to_tensor(
@@ -747,22 +782,25 @@ def device_busy(ring, device, queries, deadline_s):
 
 
 # -- phase 3 -----------------------------------------------------------------
-def phase_serving(ring, queries, answers_epoch0, seed: int = 5):
+def live_adds(V: int, P: int, seed: int = 5):
+    """The 16 edges the serving phases add while slots are in flight."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(V)), int(rng.integers(min(P, 4))),
+             int(rng.integers(V))) for _ in range(16)]
+
+
+def phase_serving(ring, queries, answers_epoch0, adds):
     """A ``SlotScheduler`` over a CUDA engine on the main path's ring.
     The engine launches the kernel from one task up: at the default 64,
     slots of these small requests never merge enough tasks.  So every
     superstep goes through the kernel, on a dynamic bundle whose padded
     width changes as slots churn."""
-    import numpy as np
     from repro_torch import kernels
     from repro_torch.core.rpq import RingRPQ
     from repro_torch.core.scheduler import SlotScheduler
     engine = RingRPQ(ring, device="cuda", kernel_threshold=1)
     sched = SlotScheduler(engine, max_slots=8)
-    rng = np.random.default_rng(seed)
-    V, P = ring.num_nodes, ring.num_preds
-    adds = [(int(rng.integers(V)), int(rng.integers(min(P, 4))),
-             int(rng.integers(V))) for _ in range(16)]
     reqs = queries[:16]
     tickets = []
     kernels.reset_launch_counts()
@@ -884,16 +922,17 @@ class HeaviestLaunch:
             self.key = key
             self.nfa_step = (X, bwd)
             self.segment_or = (Y, dg.subj, dg.num_nodes)
-            f = frontier.clone()
-            self.superstep = (f, visited.clone(), torch.zeros_like(f),
+            f = frontier[None].clone()          # one row
+            self.superstep = (f, visited[None].clone(), torch.zeros_like(f),
                               torch.zeros_like(f),
                               torch.zeros(1, dtype=torch.int32,
                                           device=f.device),
-                              1, Bp, bwd, dg.subj, dg.pred, dg.obj)
+                              1, Bp[None], bwd[None], dg.subj, dg.pred,
+                              dg.obj)
 
 
 def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
-                 capture: dict):
+                 capture: dict, hub_answers: list):
     """The packed BFS on the card over phase 2's graph: (a) the batch's
     requests, held to the ring engine's answers; (b) the hub closures
     the batch left out, through ``packed_eval`` as a user calls it, then
@@ -907,7 +946,8 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     ``packed_bfs`` with the recorder, untimed, and ``packed_superstep``
     is checked and timed on the superstep with the most non-zero
     transition words, and ``nfa_step`` and ``segment_or`` on that
-    superstep's transition input and values."""
+    superstep's transition input and values.  (b)'s answer sets are
+    appended to ``hub_answers``, for phase 7."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -938,6 +978,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
         t1 = time.perf_counter()
         got, steps = packed_eval(dg, graph, q.expr, q.subject, q.obj)
         hub.append((time.perf_counter() - t1, steps, len(got)))
+        hub_answers.append(got)
     torch.cuda.synchronize()
     hub_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -988,7 +1029,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
             "bound": superstep_bound(*sup[:2], *sup[6:]),
             "E": int(X.shape[0]), "V": V, "S": int(bwd.shape[0]),
             "W": int(X.shape[1]),
-            "live_rows": int((sup[0].index_select(0, dg.obj) != 0)
+            "live_rows": int((sup[0][0].index_select(0, dg.obj) != 0)
                              .any(1).sum())},
         "nfa_step": {**check_and_time(errs, "nfa_step", knfa.nfa_step_cuda,
                                       ref.nfa_step_ref, (X, bwd),
@@ -1117,13 +1158,257 @@ def phase_rank(ring, capture: dict, queries: int = 1_048_576, seed: int = 9):
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 7 -----------------------------------------------------------------
+# requests and hub closures rerun with the plain version on the host, in
+# one heterogeneous batch (R > 1 rows)
+DENSE_HOST_REQUESTS = 14
+DENSE_HOST_HUBS = 2
+HOST_DEADLINE_S = 3_600.0   # a deadline, so supersteps count; never hit
+
+
+def _dense_shapes(engine):
+    """The engine's distinct dispatch shapes: (kind, R, S or S_pad)."""
+    out = []
+    for key in sorted(engine.traces.signatures, key=str):
+        if key[0] in ("bfs_hetero", "bfs_chunk_hetero"):
+            out.append([key[0], key[1], key[2]])
+        elif key[0] in ("bfs_batched", "bfs_chunk_batched"):
+            out.append([key[0], key[1], key[3]])
+        else:
+            out.append([key[0], 1, key[2]])
+    return out
+
+
+def _timed_dense_batch(engine, queries, deadline_s):
+    """eval_many on a cleared result cache: (answers, seconds,
+    supersteps, dispatches, packed_superstep launches)."""
+    import torch
+    from repro_torch import kernels
+    engine.results.clear()
+    acc0, disp0 = engine._superstep_acc, engine.hetero_dispatches
+    n0 = kernels.launch_counts()["packed_superstep"]
+    t0 = time.perf_counter()
+    answers = engine.eval_many(queries, deadline_s=deadline_s)
+    torch.cuda.synchronize()
+    return (answers, time.perf_counter() - t0,
+            engine._superstep_acc - acc0, engine.hetero_dispatches - disp0,
+            kernels.launch_counts()["packed_superstep"] - n0)
+
+
+def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
+                adds):
+    """The dense engine (``make_engine(kind="dense")``) on the card over
+    phase 2's graph, nothing cut: (1) phase 2's requests through
+    ``eval_many``, answers equal to the ring's; (2) the hub closures, one
+    ``eval_many`` a request and then all in one batch, answers equal to
+    phase 5's packed path; (3) two hub closures under a 1 s deadline;
+    (4) a few requests and hub closures in one batch again on the host
+    with the plain version (R > 1): equal answers and supersteps; (6)
+    ANALYZE of one hub closure: a timeline row a superstep; (7) a
+    profiled rerun of (1) without a deadline.  The launch counts cover (1) and (2).  Then
+    (5), serving: a ``SlotScheduler`` over the engine, as phase 3, with
+    its own counts.  Every batch runs under a deadline, so the engine
+    counts its supersteps (the JAX package's rule).  (1) runs twice: with
+    its plans and planner decisions cold, then warm; the planner's
+    statistics are harvested before it and timed apart."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.engines import make_engine
+    t0 = time.perf_counter()
+    engine = make_engine(graph, kind="dense")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engine.graph_stats             # the planner's statistics, harvested once
+    stats_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    answers, batch_s, steps, dispatches, launches_a = _timed_dense_batch(
+        engine, queries, BATCH_DEADLINE_S)
+    for q, got, want in zip(queries, answers, ring_answers):
+        if got != want:
+            fail(f"dense answer of {q} differs from the ring engine's")
+    shapes_a = _dense_shapes(engine)
+    again, warm_s, *_ = _timed_dense_batch(engine, queries,
+                                           BATCH_DEADLINE_S)
+    if again != answers:
+        fail("the dense engine's warm rerun differs from its first run")
+    del again
+
+    per_request, hub_steps = [], []
+    for q, want in zip(skipped, hub_answers):
+        got, secs, st, _d, _n = _timed_dense_batch(engine, [q],
+                                                   BATCH_DEADLINE_S)
+        per_request.append(secs)
+        hub_steps.append(st)
+        if got[0] != want:
+            fail(f"dense answer of hub closure {q} differs from the packed "
+                 f"path's")
+    got, hub_batch_s, hub_batch_steps, hub_dispatches, _n = \
+        _timed_dense_batch(engine, skipped, BATCH_DEADLINE_S)
+    if got != hub_answers:
+        fail("the batched hub closures differ from the packed path's")
+    del got
+    launches = kernels.launch_counts()
+    check_packed_launches(launches, "the dense path")
+
+    overrun = []
+    for q in skipped[:OVERRUN_PROBES]:
+        t1, status = time.perf_counter(), "finished"
+        try:
+            engine.eval(q.expr, q.subject, q.obj,
+                        deadline_s=OVERRUN_DEADLINE_S)
+        except TimeoutError:
+            status = "timeout"
+        overrun.append({"query": [q.expr, q.subject, q.obj],
+                        "status": status,
+                        "seconds": time.perf_counter() - t1})
+
+    mixed = list(queries[:DENSE_HOST_REQUESTS]) + \
+        list(skipped[:DENSE_HOST_HUBS])
+    host = make_engine(graph, kind="dense", device="cpu")
+    card_mixed = _timed_dense_batch(engine, mixed, HOST_DEADLINE_S)
+    t1 = time.perf_counter()
+    host_mixed = host.eval_many(mixed, deadline_s=HOST_DEADLINE_S)
+    host_s = time.perf_counter() - t1
+    if host_mixed != card_mixed[0]:
+        fail("the dense engine's answers on the card differ from the host's")
+    if host._superstep_acc != card_mixed[2] or \
+            host.hetero_dispatches != card_mixed[3]:
+        fail("the dense engine's supersteps on the card differ from the "
+             "host's")
+    host_check = {"requests": DENSE_HOST_REQUESTS, "hub_closures":
+                  DENSE_HOST_HUBS, "supersteps": card_mixed[2],
+                  "dispatches": card_mixed[3], "card_s": card_mixed[1],
+                  "host_s": host_s, "shapes": _dense_shapes(host)}
+    del host, host_mixed, card_mixed
+
+    q = skipped[0]
+    from repro_torch.core.engines import Query
+    report = engine.explain(Query(q.expr, q.subject, q.obj), analyze=True)
+    ex = report["execution"]
+    if not ex["supersteps"] == len(ex["timeline"]) == \
+            ex["stats"]["supersteps"] > 0:
+        fail("the ANALYZE timeline's length differs from its supersteps")
+    analyze = {"query": [q.expr, q.subject, q.obj],
+               "supersteps": ex["supersteps"],
+               "kernel_ms": sum(r["kernel_ms"] for r in ex["timeline"]),
+               "elapsed_ms": ex["elapsed_ms"]}
+
+    profiled = dense_busy(engine, queries, steps)
+    serving = dense_serving(engine, queries, ring_answers, adds)
+
+    secs = np.array(per_request)
+    return {"phase": "dense_path", "dense_engine_build_s": build_s,
+            "planner_stats_s": stats_s,
+            "batch": {"requests": len(queries), "equal_to_ring": True,
+                      "seconds": batch_s, "warm_seconds": warm_s,
+                      "supersteps": steps,
+                      "dispatches": dispatches, "launches": launches_a,
+                      "launches_after_empty_superstep": launches_a - steps,
+                      "shapes": shapes_a},
+            "hub_closures": {
+                "requests": len(skipped), "equal_to_packed_path": True,
+                "request_s_median_p99_max": [float(np.median(secs)),
+                                             float(np.quantile(secs, 0.99)),
+                                             float(secs.max())],
+                "supersteps_total": int(sum(hub_steps)),
+                "one_batch_s": hub_batch_s,
+                "one_batch_supersteps": hub_batch_steps,
+                "one_batch_dispatches": hub_dispatches},
+            "kernel_launches": {k: launches[k] for k in PACKED_PATH_COUNTS},
+            "hub_deadline_overrun": {"deadline_s": OVERRUN_DEADLINE_S,
+                                     "probes": overrun},
+            "host_plain_check": host_check, "analyze": analyze,
+            **profiled, "serving": serving}
+
+
+def dense_busy(engine, queries, supersteps: int):
+    """Rerun (1) without a deadline (so the loop's chunks grow 1, 2, 4,
+    ... 16) under ``torch.profiler`` and a tracer: the card's busy time
+    against the rerun's wall time, its CUDA runtime calls, the
+    ``packed_superstep`` launches and the flag reads (one a
+    ``dense.bfs_chunk`` span), per superstep of (1) too: the same rows
+    run the same supersteps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.obs import trace as otrace
+    engine.results.clear()
+    tracer = otrace.Tracer().enable()
+    n0 = kernels.launch_counts()["packed_superstep"]
+    with otrace.use(tracer), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        engine.eval_many(queries)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()["packed_superstep"] - n0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    runtime = {e.key: e.count for e in events
+               if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
+    reads = sum(1 for e in tracer.events if e["name"] == "dense.bfs_chunk")
+    return {"profiled_batch_s": wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "runtime_calls": runtime,
+            "cudaLaunchKernel_per_superstep":
+                runtime.get("cudaLaunchKernel", 0) / max(supersteps, 1),
+            "launches_no_deadline": launches,
+            "launches_after_empty_superstep_no_deadline":
+                launches - supersteps,
+            "flag_reads": reads,
+            "flag_reads_per_superstep": reads / max(supersteps, 1)}
+
+
+def dense_serving(engine, queries, ring_answers, adds):
+    """Phase 3 on the dense engine: a ``SlotScheduler`` over it on the
+    card answers 16 requests admitted one at a time with phase 3's live
+    ``add_edges`` in between; each answer must equal ``eval_many`` at its
+    ticket's epoch (epoch 0: the ring's answers)."""
+    from repro_torch import kernels
+    from repro_torch.core.scheduler import SlotScheduler
+    engine.results.clear()          # every request takes a slot
+    sched = SlotScheduler(engine, max_slots=8)
+    reqs = queries[:16]
+    tickets = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, q in enumerate(reqs):
+        tickets.append(sched.submit(q))
+        sched.step()
+        if i == len(reqs) // 2 - 1:
+            sched.submit_update(add=adds)      # live add_edges
+    sched.drain()
+    serve_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_packed_launches(launches, "dense serving")
+    engine.results.clear()
+    want = {0: ring_answers[:16], engine.epoch: engine.eval_many(reqs)}
+    epochs = []
+    for i, (q, t) in enumerate(zip(reqs, tickets)):
+        epochs.append(t.epoch)
+        if t.result() != want[t.epoch][i]:
+            fail(f"dense slot answer of {q} at epoch {t.epoch} differs "
+                 f"from eval_many")
+    return {"requests": len(reqs), "epochs": epochs,
+            "admitted": sched.admitted,
+            "peak_in_flight": sched.peak_in_flight,
+            "kernel_launches": {k: launches[k] for k in PACKED_PATH_COUNTS},
+            "serve_s": serve_s}
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
                  "src/repro/kernels/nfa_step.py:54"),
     "packed_superstep": ("src/repro_torch/kernels/csrc/packed_superstep.cu",
                          "src/repro/kernels/nfa_step.py:54 + "
-                         "src/repro/kernels/segment_or.py:43"),
+                         "src/repro/kernels/segment_or.py:43 (and the "
+                         "XLA superstep src/repro/core/dense.py:136)"),
     "segment_or": ("src/repro_torch/kernels/csrc/segment_or.cu",
                    "src/repro/kernels/segment_or.py:43"),
     "segmented_or_scan": ("src/repro_torch/kernels/csrc/segment_or.cu",
@@ -1135,15 +1420,17 @@ KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
 }
 
 
-def kernels_line(capture: dict, launches: dict, errs: dict):
+def kernels_line(capture: dict, launches: dict, errs: dict,
+                 superstep_paths: dict):
     """One entry per kernel, timed at the largest launch of its path:
     ``nfa_step`` at phase 2's, ``packed_superstep`` at phase 5's heaviest
-    superstep (the most non-zero transition words), ``segment_or`` (on
-    no path since ``packed_superstep`` took its place) on that
-    superstep's values, the rank kernels at phase 6's largest level,
-    ``segmented_or_scan`` (on no path) at phase 1's full size.
-    ``library_ms`` is null throughout: no single PyTorch call ORs or
-    popcounts packed words."""
+    superstep (the most non-zero transition words), with its phase-1 time
+    at the dense path's R = 16 rows beside it (``rows``) and its launches
+    on each path (``launches_by_path``), ``segment_or`` (on no path since
+    ``packed_superstep`` took its place) on that superstep's values, the
+    rank kernels at phase 6's largest level, ``segmented_or_scan`` (on no
+    path) at phase 1's full size.  ``library_ms`` is null throughout: no
+    single PyTorch call ORs or popcounts packed words."""
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
     from repro_torch.kernels import ref
@@ -1169,8 +1456,8 @@ def kernels_line(capture: dict, launches: dict, errs: dict):
             lambda: superstep_check_and_time(errs, sup,
                                              "the heaviest superstep"),
             superstep_bound(*sup[:2], *sup[6:]),
-            {"E": int(sup[8].shape[0]), "V": int(sup[0].shape[0]),
-             "S": int(sup[7].shape[0]), "W": int(sup[0].shape[1])}),
+            {"E": int(sup[8].shape[0]), "V": int(sup[0].shape[1]),
+             "S": int(sup[7].shape[1]), "W": int(sup[0].shape[2])}),
         "segment_or": (checked("segment_or", kseg.segment_or_cuda,
                                ref.segment_or_ref, (vals, seg_ids, V)),
                        segment_or_bound(vals, V),
@@ -1194,6 +1481,12 @@ def kernels_line(capture: dict, launches: dict, errs: dict):
                   rank1_bound(words, directory, q),
                   {"NW": int(words.shape[0]), "Q": int(q.shape[0])}),
     }
+    rows = capture["rows"]
+    extra = {"packed_superstep": {
+        "launches_by_path": superstep_paths,
+        "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err")}}}
     out = []
     for name, (measure, (b, by), shape) in timed.items():
         times = measure()
@@ -1203,7 +1496,7 @@ def kernels_line(capture: dict, launches: dict, errs: dict):
             "replaces": replaces, "launches": launches.get(name, 0),
             **times, "max_abs_err": max(errs[name]),
             "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": shape})
+            "shape": shape, **extra.get(name, {})})
     return {"kernels": out}
 
 
@@ -1235,17 +1528,26 @@ def main() -> int:
     emit({"phase": "main_path", **report})
     if report["kernel_launches"] <= 0:
         fail("the main path launched no nfa_step kernel")
-    emit(phase_serving(engine.ring, queries, answers))
+    adds = live_adds(graph.num_nodes, graph.num_preds)
+    emit(phase_serving(engine.ring, queries, answers, adds))
     emit(phase_oracle("cuda"))
-    packed = phase_packed(graph, queries, answers, skipped, errs, capture)
+    hub_answers: list = []
+    packed = phase_packed(graph, queries, answers, skipped, errs, capture,
+                          hub_answers)
     emit(packed)
     rank = phase_rank(engine.ring, capture)
     emit(rank)
+    dense = phase_dense(graph, queries, answers, skipped, hub_answers, adds)
+    del hub_answers
+    emit(dense)
+    paths = {"packed": packed["kernel_launches"]["packed_superstep"],
+             "dense": dense["kernel_launches"]["packed_superstep"]}
     kernels = kernels_line(capture, {
         "nfa_step": report["kernel_launches"],
-        "packed_superstep": packed["kernel_launches"]["packed_superstep"],
-        "segment_or": packed["kernel_launches"]["segment_or"],
-        **rank["kernel_launches"]}, errs)
+        "packed_superstep": sum(paths.values()),
+        "segment_or": packed["kernel_launches"]["segment_or"] +
+        dense["kernel_launches"]["segment_or"],
+        **rank["kernel_launches"]}, errs, paths)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(kernels)                      # the line before the last
     print(json.dumps({"ok": True, "device": {

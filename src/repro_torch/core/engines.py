@@ -663,29 +663,31 @@ class PlanBundle:
 def make_engine(graph, kind: str = "ring", device=None, **kwargs):
     """Build an RPQ engine over a :class:`LabeledGraph`.
 
-    ``kind``: "ring" (succinct, paper-faithful).  The dense engine is not
-    ported yet and raises :class:`NotImplementedError`.
+    ``kind``: "ring" (succinct, paper-faithful) or "dense" (the packed
+    product-graph BFS, one edge pass a superstep on the card).
 
     ``device``: where the engine's kernels run — ``"cuda"`` by default;
     without a CUDA device this raises :class:`RuntimeError` before the
     index is built.  ``"cpu"`` runs the kernels' plain PyTorch versions
-    and is taken only when the caller asks for it.
+    and is taken only when the caller asks for it.  ``mesh=``/``shards=``
+    raise :class:`NotImplementedError` (sharding is not ported).
 
-    Live updates: the built engine exposes
+    Live updates (both engines): the built engine exposes
     ``add_edges``/``remove_edges``/``epoch``/``compact()`` — exact
     delta-overlay mutations with epoch-versioned cache invalidation
     (see :mod:`repro_torch.core.delta`); ``compact_threshold=`` bounds the
     overlay before it is folded back into a fresh base.
     """
+    from ..kernels.ops import resolve_device
     if kind == "ring":
-        from ..kernels.ops import resolve_device
         from .ring import Ring
         from .rpq import RingRPQ
         device = resolve_device(device)   # fail before the index build
         return RingRPQ(Ring(graph), device=device, **kwargs)
     if kind == "dense":
-        raise NotImplementedError(
-            "the dense engine is not ported yet (ROADMAP queue 1)")
+        from .dense import DenseRPQ
+        device = resolve_device(device)   # fail before the edge build
+        return DenseRPQ(graph, device=device, **kwargs)
     raise ValueError(f"unknown engine kind {kind!r}")
 
 

@@ -9,12 +9,14 @@ every edge of a :class:`DenseGraph` in one kernel launch
     Y = T'[X]                         (the transition, as nfa_step)
     new = OR of Y by subj & ~visited  (as segment_or, and the and-not)
 
-The loop runs on ``dg``'s device: the kernel on a CUDA device, its plain
-version on the CPU.  One 4-byte read of the kernel's flag a superstep
-is the stop test (a host sync).  :func:`packed_eval` answers a query
-with it, by the dense engine's rule for unsplit plans;
-:func:`one_endpoint_bfs` is that rule's automaton and start for a
-request with one endpoint bound.
+The loop is the dense engine's, :func:`repro_torch.core.dense.bfs_rows`
+with one row, on ``dg``'s device: the kernel on a CUDA device, its plain
+version on the CPU.  It queues growing chunks of supersteps (1, 2, 4,
+... up to 16) between two 4-byte reads of the kernel's flag (a host
+sync each), one superstep a chunk when an ``on_step`` hook is given.
+:func:`packed_eval` answers a query with it, by the dense engine's rule
+for unsplit plans; :func:`one_endpoint_bfs` is that rule's automaton and
+start for a request with one endpoint bound.
 """
 from __future__ import annotations
 
@@ -22,11 +24,10 @@ from itertools import repeat
 from typing import Callable, List, Optional, Set, Tuple
 
 import numpy as np
-import torch
 
 from ..kernels import ops
 from . import regex as rx
-from .dense import DenseGraph
+from .dense import DenseGraph, bfs_rows
 from .glushkov import Glushkov
 from .ring import LabeledGraph
 
@@ -49,12 +50,11 @@ def packed_bfs(
 ) -> Tuple[np.ndarray, int]:
     """Returns (visited [V, W] uint32, iterations).  ``on_step``, if
     given, is called before each superstep with ``(frontier, visited,
-    Bp, bwd)``, the tensors that superstep reads: ``visited`` does not
-    hold the frontier's bits yet (the superstep ORs them in), and the
-    superstep's transition inputs are ``frontier[dg.obj] & Bp[dg.pred]``.
-    The hook must not write them."""
+    Bp, bwd)``, the [V, W], [L, W] and [S, W] tensors that superstep
+    reads: ``visited`` does not hold the frontier's bits yet (the
+    superstep ORs them in), and the superstep's transition inputs are
+    ``frontier[dg.obj] & Bp[dg.pred]``.  The hook must not write them."""
     V = dg.num_nodes
-    S = g.m + 1
     W = g.nwords
     dev = dg.device
     Bp, bwd, Fp, _ip = packed_tables(g, dg.num_labels, dev)
@@ -62,28 +62,15 @@ def packed_bfs(
     D0[0] &= ~np.uint32(1)  # strip eps/initial acceptance bit
     planes = np.zeros((V, W), dtype=np.uint32)
     planes[np.asarray(start_objs)] = D0
-    steps = max_steps if max_steps is not None else V * S + 1
-
-    subj, pred, obj = dg.subj, dg.pred, dg.obj
-    # bufs[it % 3] is superstep it's frontier, bufs[(it + 1) % 3] its
-    # output (zero), bufs[(it + 2) % 3] the frontier before (it zeroes it)
-    bufs = [ops.words_to_tensor(planes, dev),
-            torch.zeros((V, W), dtype=torch.int32, device=dev),
-            torch.zeros((V, W), dtype=torch.int32, device=dev)]
-    visited = torch.zeros_like(bufs[1])      # trails the frontier
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    it = 0
-    active = bool(planes.any())
-    while it < steps and active:
-        frontier, nxt, spare = (bufs[(it + k) % 3] for k in range(3))
-        if on_step is not None:
-            on_step(frontier, visited, Bp, bwd)
-        ops.packed_superstep(frontier, visited, nxt, spare, flag, it + 1,
-                             Bp, bwd, subj, pred, obj)
-        it += 1
-        active = int(flag.item()) == it
-    visited |= bufs[it % 3]
-    return ops.tensor_to_words(visited), it
+    steps = max_steps if max_steps is not None else V * (g.m + 1) + 1
+    hook = None
+    if on_step is not None:
+        def hook(f, v, _Bp, _bwd):
+            on_step(f[0], v[0], Bp, bwd)
+    visited, _frontier, it = bfs_rows(
+        (dg.subj, dg.pred, dg.obj), Bp[None], bwd[None],
+        ops.words_to_tensor(planes, dev)[None], steps, on_step=hook)
+    return ops.tensor_to_words(visited[0]), it
 
 
 def answers_from_visited(visited_packed: np.ndarray) -> np.ndarray:

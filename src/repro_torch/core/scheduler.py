@@ -1,4 +1,4 @@
-"""Continuous-batching slot scheduler: the serving tier over the ring engine.
+"""Continuous-batching slot scheduler: the serving tier over both engines.
 
 The paper's evaluation "simultaneously processes several automaton
 states as well as several graph nodes" — :class:`SlotScheduler` turns
@@ -15,15 +15,15 @@ admitted ahead of it; slots retire each query the superstep it
 converges, which is what moves tail latency (see
 ``benchmarks/serving.py``).
 
-Engine contract: the engine exposes ``make_stepper()`` returning an
+Engine contract: both engines expose ``make_stepper()`` returning an
 object with ``step()`` / ``finished(handle)`` / ``remove_job(handle)``
-whose per-superstep execution is the SAME code its one-shot
+whose per-superstep execution is the SAME code their one-shot
 ``eval_many`` path runs (:class:`repro_torch.core.rpq.RingStepper` over
-the merged task list) — so slot answers equal ``eval_many`` answers by
+the merged task list, :class:`repro_torch.core.dense.DenseStepper` over
+the hetero-bucket BFS) — so slot answers equal ``eval_many`` answers by
 construction, and pow2 slot-bucket padding (dynamic
-:class:`~repro_torch.core.engines.PlanBundle` slots) keeps the kernel's
-launch shapes bounded under churn.  Only ring-engine slots are ported;
-a dense engine raises :class:`NotImplementedError`.
+:class:`~repro_torch.core.engines.PlanBundle` slots, dense width buckets)
+keeps the kernels' launch shapes bounded under churn.
 
 Admission control: ``submit`` raises :class:`Backpressure` once
 ``max_queue`` queries are waiting (shed load at the door, don't grow an
@@ -194,6 +194,40 @@ class _RingSlots:
         self.stepper.remove_job(job)
 
 
+class _DenseSlots:
+    """Dense-engine adapter: slots are independent hetero-bucket BFS
+    rows in a :class:`~repro_torch.core.dense.DenseStepper`."""
+
+    def __init__(self, eng, steps_per_tick: int = 1):
+        self.eng = eng
+        self.stepper = eng.make_stepper(steps_per_tick=steps_per_tick)
+
+    def snapshot(self):
+        return self.eng._edges()
+
+    def plan(self, ast):
+        return self.eng._plan(ast)
+
+    def start_cost(self, plan) -> Optional[int]:
+        return None   # dense eval_many always runs single-BFS rows forward
+
+    def admit(self, plan, start: int, target: Optional[int], snapshot,
+              stats: QueryStats):
+        return self.stepper.add_job(plan, int(start), edges=snapshot)
+
+    def step(self) -> None:
+        self.stepper.step()
+
+    def finished(self, slot) -> bool:
+        return self.stepper.finished(slot)
+
+    def reported(self, slot) -> Set[int]:
+        return self.stepper.reported(slot)
+
+    def release(self, slot) -> None:
+        self.stepper.remove_job(slot)
+
+
 class SlotScheduler:
     """Slot-based continuous-batching executor over one engine.
 
@@ -202,7 +236,9 @@ class SlotScheduler:
     property-testable; :class:`AsyncServer` adds the asyncio pump.
 
     Knobs: ``max_slots`` (in-flight pool size), ``max_queue``
-    (admission backpressure depth), ``clock`` (injectable for deadline tests), ``admission_policy``
+    (admission backpressure depth), ``steps_per_tick`` (dense: supersteps
+    per tick — streaming granularity vs dispatch overhead),
+    ``clock`` (injectable for deadline tests), ``admission_policy``
     ("fifo", or "edf" = earliest deadline first with FIFO tie-break for
     deadline-less tickets), ``recorder_capacity`` (the always-on flight
     recorder's ring size; every settled ticket appends one compact
@@ -211,6 +247,7 @@ class SlotScheduler:
     """
 
     def __init__(self, engine, max_slots: int = 8, max_queue: int = 256,
+                 steps_per_tick: int = 1,
                  clock: Callable[[], float] = time.monotonic,
                  metrics: Optional[MetricsRegistry] = None,
                  admission_policy: str = "fifo",
@@ -238,8 +275,7 @@ class SlotScheduler:
         if hasattr(engine, "ring"):
             self.slots: Any = _RingSlots(engine)
         elif hasattr(engine, "dg"):
-            raise NotImplementedError(
-                "dense-engine slots are not ported yet (ROADMAP queue 1)")
+            self.slots = _DenseSlots(engine, steps_per_tick=steps_per_tick)
         else:
             raise TypeError(f"unsupported engine {type(engine).__name__}")
         self.waiting: deque = deque()      # QueryTickets not yet admitted

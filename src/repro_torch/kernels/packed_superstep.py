@@ -1,20 +1,30 @@
-"""One superstep of the packed BFS as one edge pass: the CUDA kernel's
+"""One superstep of R packed BFS runs as one edge pass: the CUDA kernel's
 wrapper, its plain version and its launch counter.
 
-For frontier ``f`` and visited ``v`` ([V, W] int32 words), one call
+For frontier ``f`` and visited ``v`` ([R, V, W] int32 words, a BFS a
+row), one call does for every row r
 
-    v |= f
-    nxt |= segment_or(nfa_step(f[obj] & Bp[pred], bwd), subj, V) & ~v
-    spare[:] = 0
-    flag[0] = stamp, if that OR put a non-zero word into nxt
+    v[r] |= f[r]
+    nxt[r] |= segment_or(nfa_step(f[r][obj] & Bp[r][pred], bwd[r]),
+                         subj, V) & ~v[r]
+    spare[r][:] = 0
+    flag[0] = stamp, if that OR put a non-zero word into some nxt[r]
 
-in place, ``nxt`` zero on entry.  So ``v`` trails the frontier by one
-superstep and the caller rotates three frontier buffers: this superstep's
-``nxt`` is the next one's frontier, and its ``spare`` (the frontier
-before this one) the next one's ``nxt``.  The JAX package's loop state
-``(f, v)`` is ``(f, v | f)`` here.  The kernel is
-``csrc/packed_superstep.cu`` (see the note there for what bounds it);
-:mod:`repro_torch.core.packed` drives it.
+in place, ``nxt`` zero on entry; the edges ``subj, pred, obj`` are shared
+by every row, each row has its own tables (its own automaton).  So ``v``
+trails the frontier by one superstep and the caller rotates three
+frontier buffers: this superstep's ``nxt`` is the next one's frontier,
+and its ``spare`` (the frontier before this one) the next one's ``nxt``.
+The JAX package's loop state ``(f, v)`` is ``(f, v | f)`` here.
+
+The flag holds the stamp of the last superstep that found a word, so a
+caller may queue supersteps ``it + 1 .. it + k`` before it reads it: a
+call made while ``flag[0] < stamp - 1`` follows a superstep that found
+nothing (every frontier is empty) and changes nothing at all.  A first
+superstep takes stamp 1 with the flag at 0.
+
+The kernel is ``csrc/packed_superstep.cu`` (see the note there for what
+bounds it); :mod:`repro_torch.core.dense` drives it.
 """
 from __future__ import annotations
 
@@ -30,19 +40,21 @@ launches = {"packed_superstep": 0}
 
 def _check(f, v, nxt, spare, flag, Bp, bwd, subj, pred, obj) -> None:
     words = (f, v, nxt, spare, Bp, bwd)
-    if any(t.dim() != 2 for t in words) or flag.shape != (1,) or \
+    if any(t.dim() != 3 for t in words) or flag.shape != (1,) or \
             any(t.dim() != 1 for t in (subj, pred, obj)):
-        raise ValueError("packed_superstep wants [V, W] state words, [L, W] "
-                         "and [S, W] tables, [E] edge ids and a [1] flag")
+        raise ValueError("packed_superstep wants [R, V, W] state words, "
+                         "[R, L, W] and [R, S, W] tables, [E] edge ids and "
+                         "a [1] flag")
     if any(t.dtype != torch.int32 for t in words + (flag, subj, pred, obj)):
         raise TypeError("packed_superstep wants int32 words, ids and flag")
     tensors = words + (flag, subj, pred, obj)
     if any(t.device != f.device for t in tensors):
         raise ValueError("packed_superstep wants every tensor on one device")
-    V, W = f.shape
-    S = bwd.shape[0]
-    if any(t.shape != (V, W) for t in (v, nxt, spare)) or \
-            Bp.shape[1] != W or bwd.shape[1] != W or not 1 <= S <= 32 * W:
+    R, V, W = f.shape
+    S = bwd.shape[1]
+    if any(t.shape != (R, V, W) for t in (v, nxt, spare)) or \
+            Bp.shape[0] != R or bwd.shape[0] != R or Bp.shape[2] != W or \
+            bwd.shape[2] != W or not 1 <= S <= 32 * W:
         raise ValueError(
             f"packed_superstep shapes disagree: state {tuple(f.shape)}, "
             f"{tuple(v.shape)}, {tuple(nxt.shape)}, {tuple(spare.shape)}; "
@@ -51,7 +63,7 @@ def _check(f, v, nxt, spare, flag, Bp, bwd, subj, pred, obj) -> None:
         raise ValueError(f"packed_superstep edge ids disagree: "
                          f"{subj.shape}, {pred.shape}, {obj.shape}")
     state = {t.data_ptr() for t in (f, v, nxt, spare)}
-    if len(state) != 4 and V * W:
+    if len(state) != 4 and R * V * W:
         raise ValueError("packed_superstep wants four distinct state "
                          "buffers")
 
@@ -64,7 +76,7 @@ def packed_superstep_cuda(f, v, nxt, spare, flag, stamp: int, Bp, bwd,
     _check(f, v, nxt, spare, flag, Bp, bwd, subj, pred, obj)
     _build.check_cuda("packed_superstep_cuda", f, v, nxt, spare, flag, Bp,
                       bwd, subj, pred, obj)
-    V, W = f.shape
+    R, V, W = f.shape
     lib = _build.library("packed_superstep")
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
@@ -72,9 +84,9 @@ def packed_superstep_cuda(f, v, nxt, spare, flag, stamp: int, Bp, bwd,
             f.data_ptr(), v.data_ptr(), nxt.data_ptr(), spare.data_ptr(),
             flag.data_ptr(), int(stamp), Bp.data_ptr(), bwd.data_ptr(),
             subj.data_ptr(), pred.data_ptr(), obj.data_ptr(),
-            subj.shape[0], V, Bp.shape[0], bwd.shape[0], W, stream)
+            subj.shape[0], R, V, Bp.shape[1], bwd.shape[1], W, stream)
     _build.check_launch(rc, "packed_superstep")
-    if max(subj.shape[0], V * W):        # else nothing was launched
+    if R and max(subj.shape[0], V * W):      # else nothing was launched
         launches["packed_superstep"] += 1
 
 

@@ -103,14 +103,31 @@ def packed_superstep_ref(f: torch.Tensor, v: torch.Tensor, nxt: torch.Tensor,
                          Bp: torch.Tensor, bwd: torch.Tensor,
                          subj: torch.Tensor, pred: torch.Tensor,
                          obj: torch.Tensor) -> None:
-    """One packed BFS superstep, in place (see
-    ``kernels/packed_superstep.py``): the gathers, :func:`nfa_step_ref`,
-    :func:`segment_or_ref` and the and-not.  f, v, nxt, spare: [V, W]
-    int32 words, nxt zero on entry; flag: [1] int32; Bp [L, W], bwd
-    [S, W] int32 words; subj, pred, obj: [E] int32 ids in range."""
-    X = f.index_select(0, obj) & Bp.index_select(0, pred)
+    """One packed BFS superstep of R rows, in place (see
+    ``kernels/packed_superstep.py``): per row the gathers, the transition
+    of :func:`nfa_step_ref` with the row's own table, :func:`segment_or_ref`
+    (over ids ``r * V + subj``, one segment per row and node) and the
+    and-not.  f, v, nxt, spare: [R, V, W] int32 words, nxt zero on entry;
+    flag: [1] int32; Bp [R, L, W], bwd [R, S, W] int32 words; subj, pred,
+    obj: [E] int32 ids in range.  Nothing changes while ``flag[0] < stamp
+    - 1``."""
+    if int(flag[0]) < stamp - 1:
+        return
+    R, V, W = f.shape
+    S = bwd.shape[1]
+    rows = torch.arange(R, device=f.device)[:, None]
+    X = f[:, obj] & Bp[rows, pred[None, :]]               # [R, E, W]
+    r_idx, e_idx = (X != 0).any(dim=2).nonzero(as_tuple=True)
+    x = widen(X[r_idx, e_idx])                             # live (row, edge)
+    b = widen(bwd)
+    Y = torch.zeros_like(x)
+    for j in range(S):
+        w, k = divmod(j, 32)
+        bit = (x[:, w] >> k) & 1
+        Y |= (-bit)[:, None] & b[r_idx, j]
+    seg = r_idx * V + subj[e_idx].to(torch.int64)
     v |= f
-    new = segment_or_ref(nfa_step_ref(X, bwd), subj, f.shape[0]) & ~v
+    new = segment_or_ref(narrow(Y), seg, R * V).reshape(R, V, W) & ~v
     nxt |= new
     spare.zero_()
     if bool((new != 0).any()):

@@ -330,9 +330,13 @@ def _superstep_arrays(rng, V, E, S, L, live, ordered):
 
 
 def _superstep_on(dev, f, v, spare, Bp, bwd, subj, pred, obj, stamp=3):
+    """One superstep on ``dev``; [V, W] words and tables get a row axis
+    of one unless they have one.  The flag starts at ``stamp - 1``, so
+    the call does its work."""
     t = [_on(dev, a) for a in (f, v, spare, Bp, bwd, subj, pred, obj)]
+    t[:5] = [a if a.dim() == 3 else a[None] for a in t[:5]]
     nxt = torch.zeros_like(t[0])
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    flag = torch.full((1,), stamp - 1, dtype=torch.int32, device=dev)
     ops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, *t[3:])
     return [a.cpu().numpy() for a in (t[0], t[1], nxt, t[2], flag)]
 
@@ -360,24 +364,24 @@ def test_packed_superstep_cuda_matches_plain(cuda_device, V, E, S, L, live,
     want = _superstep_on("cpu", *arrays)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert int(got[4][0]) == (3 if got[2].any() else 0)
+    assert int(got[4][0]) == (3 if got[2].any() else 2)
     assert (int(got[4][0]) == 3) == (live > 0) or V == 1
 
 
 @pytest.mark.cuda
 def test_packed_superstep_cuda_rejects_bad_inputs(cuda_device):
-    z = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    z = torch.zeros((1, 4, 2), dtype=torch.int32, device=cuda_device)
     ids = torch.zeros(3, dtype=torch.int32, device=cuda_device)
     flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    bwd = torch.zeros((5, 2), dtype=torch.int32, device=cuda_device)
+    bwd = torch.zeros((1, 5, 2), dtype=torch.int32, device=cuda_device)
 
     def state():
         return [torch.zeros_like(z) for _ in range(4)]
 
     with pytest.raises(ValueError):                      # not contiguous
         ksup.packed_superstep_cuda(*state()[:3], torch.zeros(
-            (2, 4), dtype=torch.int32, device=cuda_device).t(), flag, 1, z,
-            bwd, ids, ids, ids)
+            (1, 2, 4), dtype=torch.int32, device=cuda_device).transpose(
+                1, 2), flag, 1, z, bwd, ids, ids, ids)
     with pytest.raises(ValueError):                      # two devices
         ksup.packed_superstep_cuda(*state(), flag.cpu(), 1, z, bwd, ids,
                                    ids, ids)
@@ -389,15 +393,18 @@ def test_packed_superstep_cuda_rejects_bad_inputs(cuda_device):
         ksup.packed_superstep_cuda(f, v, nxt, v, flag, 1, z, bwd, ids, ids,
                                    ids)
     with pytest.raises(ValueError):                      # W disagrees
-        ksup.packed_superstep_cuda(*state(), flag, 1, z[:, :1], bwd, ids,
+        ksup.packed_superstep_cuda(*state(), flag, 1, z[:, :, :1], bwd, ids,
                                    ids, ids)
+    with pytest.raises(ValueError):                      # R disagrees
+        ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd.expand(
+            2, -1, -1).contiguous(), ids, ids, ids)
     # no edges: the pass still visits the frontier and clears spare
     f, v, nxt, spare = state()
-    f[1, 0] = 5
+    f[0, 1, 0] = 5
     spare.fill_(9)
     ksup.packed_superstep_cuda(f, v, nxt, spare, flag, 1, z, bwd, ids[:0],
                                ids[:0], ids[:0])
-    assert int(v[1, 0]) == 5 and not bool(spare.any())
+    assert int(v[0, 1, 0]) == 5 and not bool(spare.any())
     assert not bool(nxt.any()) and int(flag[0]) == 0
 
 
@@ -418,3 +425,97 @@ def test_packed_bfs_on_card_matches_host_at_max_steps(cuda_device):
             want_vis, want_it = packed_bfs(host, auto, start, max_steps=steps)
             np.testing.assert_array_equal(vis, want_vis)
             assert it == want_it
+
+
+def _row_arrays(rng, R, V, E, S, L, live):
+    """A row-axis superstep's numpy inputs: unsorted hub-law subjects,
+    labels in [0, L] (L is the inert label, its table row zero), R rows
+    with their own frontiers, visited words and tables."""
+    W = (S + 31) // 32
+    f, v, spare, _Bp, _bwd, subj, pred, obj = _superstep_arrays(
+        rng, V, E, S, L + 1, live, ordered=False)
+    f = np.stack([f] + [_superstep_arrays(rng, V, 1, S, 1, live, True)[0]
+                        for _ in range(R - 1)])
+    v = np.stack([v] * R)
+    spare = np.stack([spare] * R)
+    Bp = rng.integers(0, 2**32, (R, L + 1, W), dtype=np.uint32)
+    Bp[:, L] = 0
+    bwd = rng.integers(0, 2**32, (R, S, W), dtype=np.uint32)
+    return f, v, spare, Bp, bwd, subj, pred, obj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,E,S,L,live", [
+    (1, 2000, 30_001, 5, 8, 0.3), (3, 2000, 30_001, 33, 8, 0.5),
+    (16, 5000, 100_003, 20, 128, 0.05), (16, 200_000, 1_000_003, 5, 128,
+                                          0.01), (3, 300, 4000, 40, 6, 0.0)])
+def test_packed_superstep_rows_cuda_matches_plain(cuda_device, R, V, E, S, L,
+                                                  live):
+    """The row axis: R rows with their own tables over one edge list,
+    unsorted subjects and inert-label (pred = L) edges, bit for bit with
+    the plain version; then a launch after an empty superstep changes
+    nothing."""
+    arrays = _row_arrays(np.random.default_rng(R + V + S), R, V, E, S, L,
+                         live)
+    assert (arrays[6] == L).any()
+    tk.reset_launch_counts()
+    got = _superstep_on(cuda_device, *arrays)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["packed_superstep"] == 1
+    want = _superstep_on("cpu", *arrays)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    t = [_on(cuda_device, a) for a in arrays]
+    before = [a.clone() for a in t[:3]]
+    flag = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    ksup.packed_superstep_cuda(t[0], t[1], torch.zeros_like(t[0]), t[2],
+                               flag, 3, *t[3:])
+    for a, b in zip(t[:3], before):
+        assert torch.equal(a, b)
+    assert int(flag[0]) == 1
+
+
+@pytest.mark.cuda
+def test_dense_engine_on_card_matches_host(cuda_device):
+    """make_engine(kind="dense") on the card against the host run:
+    eval_many over mixed automata, eval under a deadline (supersteps
+    equal), live updates with compact(), and a SlotScheduler; the path
+    launches packed_superstep and neither nfa_step nor segment_or."""
+    from repro_torch.core.engines import make_engine
+    g = fixtures.scale_free_graph(3_000, 6, 12_000, seed=4)
+    card = make_engine(g, kind="dense", device=cuda_device)
+    host = make_engine(g, kind="dense", device="cpu")
+    exprs = ["0/1*", "(0|2)+/^1", "^0/(1|3)*/2", "0+", "1/2/3/4/5/0*"]
+    queries = [Query(e, obj=o) for e in exprs for o in (0, 7, 99)] + \
+        [Query(e, subject=s) for e in exprs for s in (3, 50)]
+    tk.reset_launch_counts()
+    assert card.eval_many(queries) == host.eval_many(queries)
+    assert card.hetero_dispatches == host.hetero_dispatches > 0
+    for e in exprs[:3]:
+        cs, hs = QueryStats(), QueryStats()
+        assert card.eval(e, None, 5, stats=cs, deadline_s=600) == \
+            host.eval(e, None, 5, stats=hs, deadline_s=600)
+        assert cs.supersteps == hs.supersteps > 0
+    adds = [(1, 0, 2), (2, 1, 3), (40, 2, 0)]
+    for eng in (card, host):
+        eng.add_edges(adds)
+        eng.remove_edges([tuple(int(x) for x in (g.s[0], g.p[0], g.o[0]))])
+    card.results.clear()
+    host.results.clear()
+    assert card.eval_many(queries) == host.eval_many(queries)
+    card.compact()
+    host.compact()
+    assert card.eval_many(queries) == host.eval_many(queries)
+    answers = []
+    for eng in (card, host):
+        eng.results.clear()
+        sched = SlotScheduler(eng, max_slots=4)
+        tickets = [sched.submit(q) for q in queries[:8]]
+        sched.submit_update(add=[(5, 3, 6)])
+        tickets += [sched.submit(q) for q in queries[8:12]]
+        sched.drain()
+        answers.append([(t.epoch, t.result()) for t in tickets])
+    assert answers[0] == answers[1]
+    counts = tk.launch_counts()
+    assert counts["packed_superstep"] > 0
+    assert counts["nfa_step"] == counts["segment_or"] == 0

@@ -139,13 +139,26 @@ def test_explain_analyze_matches_reference():
 
 
 def test_unported_paths_raise():
+    """Sharding raises on both engines; the dense engine and a scheduler
+    over it work (their parity is ``tests/test_torch_dense*.py``), and
+    without a card the default device raises."""
+    from repro_torch.core.dense import DenseRPQ
     g = pfix.random_graph(10, 2, 20, seed=1)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        make_engine(g, kind="dense", device="cpu")
+    dense = make_engine(g, kind="dense", device="cpu")
+    assert isinstance(dense, DenseRPQ)
+    assert dense.eval("0/1*", None, 3) == port_oracle(g, "0/1*", None, 3)
     with pytest.raises(NotImplementedError, match="queue 1"):
         make_engine(g, device="cpu", shards=2)
     with pytest.raises(NotImplementedError, match="queue 1"):
-        PSched(type("DenseLike", (), {"dg": None})())
+        make_engine(g, kind="dense", device="cpu", shards=2)
+    sched = PSched(dense)
+    assert type(sched.slots).__name__ == "_DenseSlots"
+    t = sched.submit(Query("0/1*", obj=3))
+    sched.drain()
+    assert t.result() == port_oracle(g, "0/1*", None, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            make_engine(g, kind="dense")
     with pytest.raises(ValueError):
         make_engine(g, kind="other", device="cpu")
 

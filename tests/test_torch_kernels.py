@@ -379,16 +379,18 @@ def _superstep_inputs(edges, V, E, S, live, seed=0):
 
 
 def _port_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp=7):
-    """The port's superstep on CPU copies: (v, nxt, spare, flag) after."""
-    t = [tops.words_to_tensor(a, "cpu") for a in (f, v, spare, Bp, bwd)]
+    """The port's superstep on CPU copies, one row (the flag at ``stamp -
+    1``, so the call does its work): (v, nxt, spare, flag) after."""
+    t = [tops.words_to_tensor(a, "cpu")[None]
+         for a in (f, v, spare, Bp, bwd)]
     ids = [torch.from_numpy(a) for a in (subj, pred, obj)]
     nxt = torch.zeros_like(t[0])
-    flag = torch.zeros(1, dtype=torch.int32)
+    flag = torch.full((1,), stamp - 1, dtype=torch.int32)
     tops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, t[3], t[4],
                           *ids)
-    np.testing.assert_array_equal(tops.tensor_to_words(t[0]), f)
-    return (tops.tensor_to_words(t[1]), tops.tensor_to_words(nxt),
-            tops.tensor_to_words(t[2]), int(flag[0]))
+    np.testing.assert_array_equal(tops.tensor_to_words(t[0][0]), f)
+    return (tops.tensor_to_words(t[1][0]), tops.tensor_to_words(nxt[0]),
+            tops.tensor_to_words(t[2][0]), int(flag[0]))
 
 
 @pytest.mark.parametrize("edges,V,E,S,live", [
@@ -410,15 +412,15 @@ def test_packed_superstep_matches_reference(edges, V, E, S, live):
     np.testing.assert_array_equal(nxt, want)
     np.testing.assert_array_equal(got_v, vis)
     assert not got_spare.any()
-    assert flag == (7 if want.any() else 0)
+    assert flag == (7 if want.any() else 6)
     assert bool(want.any()) == (live > 0)
 
 
 def test_packed_superstep_wrappers_check_inputs_and_never_fall_back():
-    z = torch.zeros((4, 1), dtype=torch.int32)
+    z = torch.zeros((1, 4, 1), dtype=torch.int32)
     ids = torch.zeros(3, dtype=torch.int32)
     flag = torch.zeros(1, dtype=torch.int32)
-    bwd = torch.zeros((2, 1), dtype=torch.int32)
+    bwd = torch.zeros((1, 2, 1), dtype=torch.int32)
 
     def state():
         return [torch.zeros_like(z) for _ in range(4)]
@@ -429,19 +431,158 @@ def test_packed_superstep_wrappers_check_inputs_and_never_fall_back():
         tops.packed_superstep(*state(), flag, 1, z, bwd, ids.long(), ids,
                               ids)
     with pytest.raises(ValueError):       # state buffers of two shapes
-        tops.packed_superstep(*state()[:3], z[:2], flag, 1, z, bwd, ids,
+        tops.packed_superstep(*state()[:3], z[:, :2], flag, 1, z, bwd, ids,
                               ids, ids)
     with pytest.raises(ValueError):       # one buffer twice
         f, v, nxt, _ = state()
         tops.packed_superstep(f, v, nxt, f, flag, 1, z, bwd, ids, ids, ids)
     with pytest.raises(ValueError):       # table wider than the words
         tops.packed_superstep(*state(), flag, 1, z,
-                              torch.zeros((33, 1), dtype=torch.int32), ids,
-                              ids, ids)
+                              torch.zeros((1, 33, 1), dtype=torch.int32),
+                              ids, ids, ids)
     with pytest.raises(ValueError):       # edge ids of two lengths
         tops.packed_superstep(*state(), flag, 1, z, bwd, ids, ids[:2], ids)
+    with pytest.raises(ValueError):       # tables of another row count
+        tops.packed_superstep(*state(), flag, 1, z,
+                              torch.zeros((2, 2, 1), dtype=torch.int32),
+                              ids, ids, ids)
+    with pytest.raises(ValueError):       # words without a row axis
+        tops.packed_superstep(*[t[0] for t in state()], flag, 1, z[0],
+                              bwd[0], ids, ids, ids)
     with pytest.raises(ValueError):       # no third device kind
         tops.packed_superstep(*[t.to("meta") for t in state()],
                               flag.to("meta"), 1, z.to("meta"),
                               bwd.to("meta"), ids.to("meta"),
                               ids.to("meta"), ids.to("meta"))
+
+
+def _row_inputs(R, V, E, S, L, live, seed):
+    """R rows of one superstep's state over one edge list, made with
+    numpy: unsorted subjects, labels in [0, L] (L the inert label, its
+    table rows zero), each row with its own frontier, visited words and
+    tables; every frontier word has bits at and above S too."""
+    rng = np.random.default_rng(seed)
+    W = (S + 31) // 32
+    assert S < 32 * W
+    subj, obj = rng.integers(0, V, (2, E)).astype(np.int32)
+    pred = rng.integers(0, L + 1, E).astype(np.int32)
+    f = rng.integers(0, 2**32, (R, V, W), dtype=np.uint32)
+    f[..., -1] |= np.uint32(1 << 31)
+    f[rng.random((R, V)) >= live] = 0
+    v = rng.integers(0, 2**32, (R, V, W), dtype=np.uint32)
+    v[rng.random((R, V, W)) < 0.7] = 0
+    Bp = rng.integers(0, 2**32, (R, L + 1, W), dtype=np.uint32)
+    Bp[:, L] = 0
+    bwd = rng.integers(0, 2**32, (R, S, W), dtype=np.uint32)
+    spare = rng.integers(0, 2**32, (R, V, W), dtype=np.uint32)
+    return f, v, spare, Bp, bwd, subj, pred, obj
+
+
+def _rows_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp, flag0):
+    """The plain superstep on CPU copies of [R, ...] arrays: (f, v, nxt,
+    spare, flag) after."""
+    t = [tops.words_to_tensor(a, "cpu") for a in (f, v, spare, Bp, bwd)]
+    nxt = torch.zeros_like(t[0])
+    flag = torch.full((1,), flag0, dtype=torch.int32)
+    tops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, t[3], t[4],
+                          *(torch.from_numpy(a) for a in (subj, pred, obj)))
+    return [tops.tensor_to_words(a) for a in (t[0], t[1], nxt, t[2])] + \
+        [int(flag[0])]
+
+
+@pytest.mark.parametrize("R,V,E,S,L,live", [
+    (3, 40, 150, 5, 4, 0.5), (4, 30, 120, 33, 6, 0.3), (2, 25, 90, 20, 3, 0.0),
+    (5, 50, 300, 12, 2, 1.0)])
+def test_packed_superstep_rows_match_separate_rows(R, V, E, S, L, live):
+    """The row axis is R independent supersteps: one call of R rows
+    equals R calls of one row each, word for word (the flag is set when
+    any row found a word); a call whose flag is below stamp - 1 changes
+    nothing."""
+    arrays = _row_inputs(R, V, E, S, L, live, seed=R * V + S)
+    got = _rows_superstep(*arrays, stamp=4, flag0=3)
+    flags = []
+    for r in range(R):
+        one = _rows_superstep(*(a[r:r + 1] for a in arrays[:5]),
+                              *arrays[5:], stamp=4, flag0=3)
+        for g_, w in zip(got[:4], one[:4]):
+            np.testing.assert_array_equal(g_[r], w[0])
+        flags.append(one[4])
+    assert got[4] == max(flags) == (4 if got[2].any() else 3)
+    assert bool(got[2].any()) == (live > 0)
+    idle = _rows_superstep(*arrays, stamp=4, flag0=2)
+    for a, b in zip(idle[:2] + idle[3:4], arrays[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert not idle[2].any() and idle[4] == 2
+
+
+def _reference_hetero(g, exprs, starts):
+    """The JAX dense engine's stacked int8 plane tables and start planes
+    for one row per (expression, start), padded to the bucket width."""
+    import jax.numpy as jnp
+    from repro.core import regex as jrx
+    from repro.core.dense import DenseRPQ as JDense, _plane_tables, _start_row
+    eng = JDense(g)
+    autos = [eng._automaton(jrx.parse(e)) for e in exprs]
+    S_pad = eng._pad_width(max(a.m + 1 for a in autos))
+    L, V = eng.dg.num_labels, g.num_nodes
+    B = np.zeros((len(autos), L + 1, S_pad), dtype=np.int8)
+    PRED = np.zeros((len(autos), S_pad, S_pad), dtype=np.int8)
+    planes = np.zeros((len(autos), V, S_pad), dtype=np.int8)
+    for r, (a, s) in enumerate(zip(autos, starts)):
+        Br, Pr, _F = _plane_tables(a, L)
+        B[r, :, :a.m + 1] = np.asarray(Br)
+        PRED[r, :a.m + 1, :a.m + 1] = np.asarray(Pr)
+        planes[r, s, :a.m + 1] = _start_row(a)
+    return eng.dg, B, PRED, planes, jnp
+
+
+def test_packed_superstep_rows_match_reference_bfs_hetero():
+    """Row-axis supersteps, the plain version, against the JAX package's
+    ``_bfs_chunk_hetero`` (one superstep a call, each row its own
+    automaton and width padding) and ``_bfs_hetero`` (the fixpoint):
+    frontier and visited planes word for word at every superstep, and
+    the port's loop (``dense.bfs_rows``) reaches the same visited planes
+    in the same supersteps."""
+    from repro.core.dense import _bfs_chunk_hetero, _bfs_hetero
+    from repro_torch.core.dense import bfs_rows
+    g = random_graph(30, 3, 110, seed=12, pred_zipf=False)
+    exprs = ["0/1*", "(0|2)+/^1", "2", "0/1/2/0/1*/2"]
+    dg, B, PRED, planes, jnp = _reference_hetero(g, exprs, [0, 3, 7, 11])
+    S_pad = planes.shape[2]
+    ids = [torch.from_numpy(np.array(a)) for a in (dg.subj, dg.pred,
+                                                    dg.obj)]
+    Bp, Pp = (tops.words_to_tensor(tops.pack_bits(a), "cpu")
+              for a in (B, PRED))
+    f = v = jnp.asarray(planes)
+    pf = tops.words_to_tensor(tops.pack_bits(planes), "cpu")
+    pv = pf.clone()                     # the JAX visited, which holds f
+    steps = 0
+    while bool(jnp.any(f > 0)):
+        f, v, its = _bfs_chunk_hetero(dg.subj, dg.pred, dg.obj,
+                                      jnp.asarray(B), jnp.asarray(PRED), f, v,
+                                      g.num_nodes, 1)
+        nxt = torch.zeros_like(pf)
+        flag = torch.full((1,), steps, dtype=torch.int32)
+        tops.packed_superstep(pf, pv, nxt, torch.zeros_like(pf), flag,
+                              steps + 1, Bp, Pp, *ids)
+        steps += int(its)
+        np.testing.assert_array_equal(
+            tops.unpack_bits(tops.tensor_to_words(nxt), S_pad), np.asarray(f))
+        np.testing.assert_array_equal(
+            tops.unpack_bits(tops.tensor_to_words(pv | nxt), S_pad),
+            np.asarray(v))
+        assert int(flag[0]) == (steps if bool(jnp.any(f > 0)) else steps - 1)
+        pf, pv = nxt, pv | nxt
+    want = _bfs_hetero(dg.subj, dg.pred, dg.obj, jnp.asarray(B),
+                       jnp.asarray(PRED), jnp.asarray(planes), g.num_nodes,
+                       g.num_nodes * S_pad + 1)
+    start = tops.words_to_tensor(tops.pack_bits(planes), "cpu")
+    vis, front, it = bfs_rows(tuple(ids), Bp, Pp, start,
+                              g.num_nodes * S_pad + 1)
+    np.testing.assert_array_equal(
+        tops.unpack_bits(tops.tensor_to_words(vis), S_pad), np.asarray(want))
+    assert it == steps > 3 and not bool(front.any())
+    for cap in (1, 2, steps - 1):
+        _vis, front, it = bfs_rows(tuple(ids), Bp, Pp, tops.words_to_tensor(
+            tops.pack_bits(planes), "cpu"), cap)
+        assert it == cap and bool(front.any())
