@@ -58,14 +58,24 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      and supersteps); ANALYZE of one hub closure; a profiled rerun
      (idle share, ``cudaLaunchKernel`` and flag reads a superstep); a
      ``SlotScheduler`` over the engine as phase 3.  The path must launch
-     ``packed_superstep`` and neither ``nfa_step`` nor ``segment_or``.
+     ``packed_superstep`` and neither ``nfa_step`` nor ``segment_or``;
+  8. mesh: both engines sharded over a mesh of 4 x the card on phase 2's
+     graph (its ``Ring`` and phase 7's statistics reused): the ring on
+     phase 2's requests (``nfa_step`` once a shard per sharded batch),
+     the dense engine on them and 32 hub closures, with a profiled rerun
+     and the all-gather bytes a superstep beside ANALYZE's model of
+     them; the dense engine on a 2 x 2 data x model mesh on a subset;
+     phase 7's statistics and overlay saved with
+     ``repro_torch.checkpoint``, restored onto the card and loaded into
+     a new 4-shard engine.  Every answer equals phases 2, 5 and 7.
 
-Each of phases 2-7 sets the launch counts to 0 just before its path and
+Each of phases 2-8 sets the launch counts to 0 just before its path and
 prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
 times at its path's largest launch, the heaviest superstep for
-``packed_superstep`` and ``segment_or``)
+``packed_superstep`` and ``segment_or``; for ``nfa_step`` and
+``packed_superstep`` also a shard's launch on the mesh)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -213,7 +223,7 @@ def segment_or_bound(vals, num_segments: int):
                  int(nonzero.sum()), INT32_OPS_PER_S)
 
 
-def superstep_bound(f, v, Bp, bwd, subj, pred, obj):
+def superstep_bound(f, v, Bp, bwd, subj, pred, obj, gathered=None):
     """What one packed_superstep of R rows ([R, V, W] state, [R, L, W]
     and [R, S, W] tables) must move, from these inputs: every edge's obj
     once and every frontier word (4*E + 4*R*V*W); the pred of each edge
@@ -222,16 +232,23 @@ def superstep_bound(f, v, Bp, bwd, subj, pred, obj):
     word a row's transition reaches, v read (4) and, where the mask
     leaves bits, nxt written (4); at each non-zero frontier word v read
     and written (8); spare written (4*R*V*W); the tables once.
-    Operations: W ORs per set bit of X below S, over the rows."""
+    Operations: W ORs per set bit of X below S, over the rows.  A
+    shard's superstep (``gathered`` [R, V_pad, W], the frontier gathered
+    over the mesh; the state and ``subj`` local) also reads the gathered
+    words at its edges' distinct objects (4*R*W each), and its state
+    terms are over its own V rows."""
     import torch
     from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref
     E = obj.shape[0]
     (R, V, W), S, L = f.shape, bwd.shape[1], Bp.shape[1]
+    g = f if gathered is None else gathered
+    remote = 0 if gathered is None else \
+        4 * R * W * int(torch.unique(obj).numel())
     live_f = torch.zeros(E, dtype=torch.bool, device=f.device)
     live_y = torch.zeros_like(live_f)
     targets = written = set_bits = 0
     for r in range(R):
-        fo = f[r].index_select(0, obj)
+        fo = g[r].index_select(0, obj)
         live_f |= (fo[:, :(S + 31) // 32] != 0).any(1)
         X = fo & Bp[r].index_select(0, pred)
         Y = nfa_step_ref(X, bwd[r])
@@ -240,7 +257,7 @@ def superstep_bound(f, v, Bp, bwd, subj, pred, obj):
         targets += int((reach != 0).sum())
         written += int(((reach & ~(v[r] | f[r])) != 0).sum())
         set_bits += int(_set_bits_below(X, S))
-    n_bytes = (4 * E + 8 * R * V * W
+    n_bytes = (4 * E + 8 * R * V * W + remote
                + 4 * (int(live_f.sum()) + int(live_y.sum()) + targets
                       + written)
                + 8 * int((f != 0).sum()) + 4 * R * (L + S) * W)
@@ -344,14 +361,16 @@ def check_and_time(errs: dict, name: str, kernel, plain, args,
             "plain_ms": time_ms(lambda: plain(*args))}
 
 
-def superstep_check_and_time(errs: dict, args, where) -> dict:
+def superstep_check_and_time(errs: dict, args, where,
+                             gathered=None) -> dict:
     """``packed_superstep`` against its plain version, bit for bit, each
     on its own copy of the state (it works in place): visited, nxt,
     spare and the flag after.  Then both timed in place on a further
     copy: a repeat on the state a superstep leaves does the same work
     (v already holds f, the same words are ORed into nxt again).  Beside
-    them, for one row, the unfused composition the pass replaced
-    (``unfused_ms``)."""
+    them, for one unsharded row, the unfused composition the pass
+    replaced (``unfused_ms``).  ``gathered``: a shard's superstep, over
+    the frontier gathered over the mesh."""
     import torch
     from repro_torch.kernels import packed_superstep as ksup
     from repro_torch.kernels import ref
@@ -359,7 +378,7 @@ def superstep_check_and_time(errs: dict, args, where) -> dict:
 
     def run(step):
         copy = [t.clone() for t in state]
-        step(*copy, stamp, *tables)
+        step(*copy, stamp, *tables, gathered=gathered)
         return copy
 
     got = run(ksup.packed_superstep_cuda)
@@ -372,12 +391,12 @@ def superstep_check_and_time(errs: dict, args, where) -> dict:
     copy = [t.clone() for t in state]
 
     def kernel():
-        ksup.packed_superstep_cuda(*copy, stamp, *tables)
+        ksup.packed_superstep_cuda(*copy, stamp, *tables, gathered=gathered)
 
     out = {"max_abs_err": err, "ms": time_ms(kernel),
            "plain_ms": time_ms(lambda: ref.packed_superstep_ref(
-               *copy, stamp, *tables))}
-    if state[0].shape[0] == 1:
+               *copy, stamp, *tables, gathered=gathered))}
+    if state[0].shape[0] == 1 and gathered is None:
         out["unfused_ms"] = unfused_ms(args, want[2][0], where)
     return out
 
@@ -1321,16 +1340,17 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
             "hub_deadline_overrun": {"deadline_s": OVERRUN_DEADLINE_S,
                                      "probes": overrun},
             "host_plain_check": host_check, "analyze": analyze,
-            **profiled, "serving": serving}
+            **profiled, "serving": serving}, engine, stats_s
 
 
-def dense_busy(engine, queries, supersteps: int):
+def dense_busy(engine, queries, supersteps: int,
+               chunk_span: str = "dense.bfs_chunk"):
     """Rerun (1) without a deadline (so the loop's chunks grow 1, 2, 4,
     ... 16) under ``torch.profiler`` and a tracer: the card's busy time
     against the rerun's wall time, its CUDA runtime calls, the
     ``packed_superstep`` launches and the flag reads (one a
-    ``dense.bfs_chunk`` span), per superstep of (1) too: the same rows
-    run the same supersteps."""
+    ``chunk_span`` span), per superstep of (1) too: the same rows run the
+    same supersteps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -1351,12 +1371,14 @@ def dense_busy(engine, queries, supersteps: int):
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     runtime = {e.key: e.count for e in events
                if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
-    reads = sum(1 for e in tracer.events if e["name"] == "dense.bfs_chunk")
+    reads = sum(1 for e in tracer.events if e["name"] == chunk_span)
     return {"profiled_batch_s": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "runtime_calls": runtime,
             "cudaLaunchKernel_per_superstep":
                 runtime.get("cudaLaunchKernel", 0) / max(supersteps, 1),
+            "cudaMemcpyAsync_per_superstep":
+                runtime.get("cudaMemcpyAsync", 0) / max(supersteps, 1),
             "launches_no_deadline": launches,
             "launches_after_empty_superstep_no_deadline":
                 launches - supersteps,
@@ -1401,6 +1423,328 @@ def dense_serving(engine, queries, ring_answers, adds):
             "serve_s": serve_s}
 
 
+# -- phase 8 -----------------------------------------------------------------
+MESH_SHARDS = 4          # shards of one card, as a 4-device mesh would have
+MESH_HUBS = 32           # hub closures phase 8 (b) answers, one call each
+MODEL_SUBSET = (256, 8)  # phase 8 (c): requests, hub closures
+
+
+def _card_mesh(shape, names):
+    """A mesh naming the one card at every position of ``shape``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import Mesh
+    devices = np.empty(int(np.prod(shape)), dtype=object)
+    devices[:] = [torch.device("cuda", 0)] * devices.size
+    return Mesh(devices.reshape(shape), names)
+
+
+def _launch_delta(before: dict) -> dict:
+    from repro_torch import kernels
+    now = kernels.launch_counts()
+    return {k: now[k] - before[k] for k in PACKED_PATH_COUNTS}
+
+
+def _mesh_batch(engine, queries, deadline_s):
+    """eval_many of the sharded dense engine on a cleared result cache:
+    (answers, seconds, counters): dispatches, counted supersteps,
+    launches per kernel, the shards' launched supersteps (launches over
+    shards) and the all-gather bytes, in all and per launched superstep."""
+    import torch
+    from repro_torch import kernels
+    engine.results.clear()
+    sh = engine.sharded
+    d0, s0, g0 = sh.dispatches, sh.supersteps, sh.gather_bytes
+    n0 = kernels.launch_counts()
+    t0 = time.perf_counter()
+    answers = engine.eval_many(queries, deadline_s=deadline_s)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launch_delta(n0)
+    launched = launches["packed_superstep"] // (sh.num_shards *
+                                               sh._pad_multiple)
+    moved = sh.gather_bytes - g0
+    return answers, secs, {
+        "dispatches": sh.dispatches - d0, "supersteps": sh.supersteps - s0,
+        "launches": launches, "launched_supersteps": launched,
+        "gather_bytes": moved,
+        "gather_bytes_per_launched_superstep": moved / max(launched, 1)}
+
+
+def phase_mesh(graph, ring, stats, stats_s, queries, ring_answers, skipped,
+               hub_answers, source, capture):
+    """Both engines sharded over a mesh of 4 x the card (``Mesh``, a
+    device named once per shard; each shard its own tensors and one
+    launch a superstep over the all-gathered frontier) on phase 2's
+    graph, nothing cut, with phase 2's ``Ring`` and phase 7's
+    ``GraphStats`` passed in through ``stats=``: (a) the ring,
+    ``RingRPQ(ring, mesh=...)``, on phase 2's requests, answers equal to
+    phase 2's, ``nfa_step`` launched once a shard per sharded batch; (b)
+    the dense engine on the same mesh, on phase 2's requests (equal to
+    the ring's) and the first 32 hub closures one call each (equal to
+    phases 5 and 7), then a profiled rerun of the requests; (c) the
+    dense engine on a 2 x 2 data x model mesh on a subset; (d) phase 7's
+    statistics and overlay (after its live ``add_edges``) saved with
+    ``repro_torch.checkpoint``, restored onto the card and loaded into a
+    new 4-shard dense engine, whose answers must equal the phase-7
+    engine's at its epoch (taken before the phase's counts start).  Each
+    part resets nothing: its launches are the counts' growth over it, and
+    the phase's are reset just before (a) and read after (d)."""
+    import tempfile
+    import torch
+    from repro_torch import checkpoint, kernels
+    from repro_torch.core.engines import Query, make_engine
+    from repro_torch.core.rpq import RingRPQ
+    from repro_torch.core.stats import GraphStats
+    from repro_torch.kernels import ops as kops
+    mesh = _card_mesh((MESH_SHARDS,), ("data",))
+    out = {"phase": "mesh", "mesh": {"shape": mesh.shape, "devices": sorted(
+        {str(d) for d in mesh.devices.flat})}}
+    nq, nh = MODEL_SUBSET
+    # (d)'s yardstick, phase 7's engine at its epoch, answers before the
+    # phase's counts start: its launches are not the mesh's
+    restore_reqs = list(queries[:nq]) + list(skipped[:4])
+    source.results.clear()
+    restore_want = source.eval_many(restore_reqs)
+    kernels.reset_launch_counts()
+
+    # (a) the ring: one nfa_step launch a shard per sharded batch
+    original = kops.nfa_step
+
+    def recording(X, bwd):     # keep the largest shard launch's inputs
+        if X.shape[0] > capture.get("shard_N", -1):
+            capture.update(shard_N=X.shape[0], shard_X=X, shard_bwd=bwd)
+        return original(X, bwd)
+
+    n0 = kernels.launch_counts()
+    engine = RingRPQ(ring, mesh=mesh, stats=stats)
+    kops.nfa_step = recording
+    try:
+        t0 = time.perf_counter()
+        answers = engine.eval_many(queries, deadline_s=BATCH_DEADLINE_S)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+    finally:
+        kops.nfa_step = original
+    launches = _launch_delta(n0)
+    if answers != ring_answers:
+        fail("the sharded ring's answers differ from phase 2's")
+    batches = engine.sharded_kernel_batches
+    if batches <= 0 or launches["nfa_step"] < MESH_SHARDS * batches:
+        fail(f"the sharded ring launched nfa_step {launches['nfa_step']} "
+             f"times over {batches} sharded batches of {MESH_SHARDS} shards")
+    out["ring"] = {"requests": len(queries), "equal_to_phase_2": True,
+                   "seconds": ring_s, "sharded_kernel_batches": batches,
+                   "tasks_per_shard": capture.get("shard_N"),
+                   "kernel_launches": launches}
+    del engine, answers
+
+    # (b) the dense engine on the same mesh
+    t0 = time.perf_counter()
+    engine = make_engine(graph, kind="dense", mesh=mesh, stats=stats)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    answers, batch_s, batch = _mesh_batch(engine, queries, BATCH_DEADLINE_S)
+    if answers != ring_answers:
+        fail("the sharded dense engine's answers differ from the ring's")
+    again, warm_s, _warm = _mesh_batch(engine, queries, BATCH_DEADLINE_S)
+    if again != answers:
+        fail("the sharded dense engine's warm rerun differs from its first")
+    del answers, again
+    hub = []
+    for q, want in zip(skipped[:MESH_HUBS], hub_answers):
+        got, secs, info = _mesh_batch(engine, [q], BATCH_DEADLINE_S)
+        if got[0] != want:
+            fail(f"the sharded dense answer of hub closure {q} differs from "
+                 f"phases 5 and 7")
+        hub.append((secs, info))
+    if len(hub) < MESH_HUBS:
+        fail(f"only {len(hub)} hub closures ran on the mesh")
+    total = {k: sum(h[1]["launches"][k] for h in hub) + batch["launches"][k]
+             for k in PACKED_PATH_COUNTS}
+    check_packed_launches(total, "the sharded dense path")
+    recorded = record_shard_launch(engine, queries, skipped[:MESH_HUBS],
+                                   capture)
+    if recorded["answers"] != (ring_answers, hub_answers[:MESH_HUBS]):
+        fail("the sharded dense engine's recorded rerun differs")
+    del recorded["answers"]
+    model = {}
+    for name, q in (("request", queries[0]), ("hub_closure", skipped[0])):
+        col = engine.explain(Query(q.expr, q.subject, q.obj))["collective"]
+        model[name] = {"query": [q.expr, q.subject, q.obj], **col}
+    first = hub[0][1]
+    sh = engine.sharded
+    gather = {
+        "measured_bytes_per_launched_superstep": {
+            "batch": batch["gather_bytes_per_launched_superstep"],
+            "rows_per_dispatch": engine.source_batch,
+            "hub_closure": first["gather_bytes_per_launched_superstep"]},
+        "analyze_model_bytes_per_superstep": model,
+        "note": ("measured: every shard's [R, V_pad/n, W] int32 words "
+                 "copied into one [R, V_pad, W] buffer of the card, R rows "
+                 "a dispatch; ANALYZE: int8 planes [V_pad, S] of one query, "
+                 "(n-1)/n of them per device")}
+    profiled = dense_busy(engine, queries, batch["supersteps"],
+                          chunk_span="dense.sharded_chunk")
+    secs = [h[0] for h in hub]
+    out["dense"] = {
+        "build_s": build_s, "num_shards": sh.num_shards,
+        "nodes_per_shard": sh.sg.nodes_per_shard,
+        "edges_per_shard": int(sh.sg.subj_local.shape[1]),
+        "batch": {"requests": len(queries), "equal_to_ring": True,
+                  "seconds": batch_s, "warm_seconds": warm_s, **batch},
+        "hub_closures": {"requests": len(hub), "equal_to_phases_5_7": True,
+                         "seconds": sum(secs),
+                         "request_s_median_max": [statistics.median(secs),
+                                                  max(secs)],
+                         "supersteps": sum(h[1]["supersteps"] for h in hub),
+                         "launches": sum(h[1]["launches"]["packed_superstep"]
+                                         for h in hub)},
+        "all_gather": gather, "profiled": profiled,
+        "recorded_rerun": recorded}
+    del engine
+
+    # (c) 2 x 2 data x model: each data shard's edges split over 2 replicas
+    mesh22 = _card_mesh((2, 2), ("data", "model"))
+    n0 = kernels.launch_counts()
+    t0 = time.perf_counter()
+    engine = make_engine(graph, kind="dense", mesh=mesh22,
+                         model_axis="model", stats=stats)
+    answers, sub_s, sub = _mesh_batch(engine, queries[:nq], BATCH_DEADLINE_S)
+    if answers != ring_answers[:nq]:
+        fail("the 2 x 2 mesh's answers differ from the ring's")
+    got, hubs_s, hubs = _mesh_batch(engine, skipped[:nh], BATCH_DEADLINE_S)
+    if got != hub_answers[:nh]:
+        fail("the 2 x 2 mesh's hub closures differ from phases 5 and 7")
+    launches = _launch_delta(n0)
+    check_packed_launches(launches, "the 2 x 2 mesh")
+    out["data_model"] = {"mesh": mesh22.shape,
+                         "seconds": time.perf_counter() - t0,
+                         "requests": {"count": nq, "seconds": sub_s, **sub},
+                         "hub_closures": {"count": nh, "seconds": hubs_s,
+                                          **hubs},
+                         "kernel_launches": launches}
+    del engine, answers, got
+
+    # (d) checkpoint phase 7's state, restore it onto a 4-shard engine
+    state = {"overlay": source.overlay_state(),
+             "stats": source.graph_stats.to_state()}
+    if state["overlay"] is None:
+        fail("phase 7's engine has no overlay to checkpoint")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = checkpoint.save(d, source.epoch, state)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        t0 = time.perf_counter()
+        got, _extra = checkpoint.restore(d, state, verify=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    n0 = kernels.launch_counts()
+    t0 = time.perf_counter()
+    restored_stats = GraphStats.from_state(got["stats"])
+    engine = make_engine(graph, kind="dense", mesh=mesh, stats=restored_stats)
+    build_s = time.perf_counter() - t0
+    # the restored statistics plan epoch 0 without a harvest
+    answers, base_s, base = _mesh_batch(engine, queries[:nq],
+                                        BATCH_DEADLINE_S)
+    if answers != ring_answers[:nq]:
+        fail("the restored 4-shard engine's answers differ from the ring's")
+    if engine._stats is not restored_stats:
+        fail("the restored engine rebuilt its statistics")
+    # then the overlay: the engine takes phase 7's epoch, and (the JAX
+    # package's rule) drops statistics priced before it and harvests anew
+    t0 = time.perf_counter()
+    engine.load_overlay(got["overlay"])
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.graph_stats
+    reharvest_s = time.perf_counter() - t0
+    if engine.epoch != source.epoch:
+        fail("the restored engine's epoch differs from phase 7's")
+    reqs = restore_reqs
+    answers, ans_s, info = _mesh_batch(engine, reqs, BATCH_DEADLINE_S)
+    if answers != restore_want:
+        fail("the restored 4-shard engine's answers differ from phase 7's")
+    launches = _launch_delta(n0)
+    check_packed_launches(launches, "the restored mesh engine")
+    out["checkpoint"] = {
+        "epoch": engine.epoch, "bytes": size,
+        "codec": checkpoint.DEFAULT_CODEC,
+        "arrays": sum(len(v) for v in state.values()),
+        "save_s": save_s, "restore_s": restore_s,
+        "stats_from_graph_s": stats_s, "engine_build_s": build_s,
+        "epoch_0": {"requests": nq, "equal_to_ring": True,
+                    "stats_harvested": False, "seconds": base_s, **base},
+        "load_overlay_s": load_s, "stats_reharvest_after_overlay_s":
+            reharvest_s,
+        "at_epoch": {"requests": len(reqs), "equal_to_phase_7": True,
+                     "seconds": ans_s, **info},
+        "kernel_launches": launches}
+    phase_launches = kernels.launch_counts()
+    out["kernel_launches"] = {k: phase_launches[k]
+                              for k in PACKED_PATH_COUNTS}
+    if not phase_launches["packed_superstep"] or \
+            not phase_launches["nfa_step"]:
+        fail("the mesh phase launched no packed_superstep or nfa_step")
+    return out
+
+
+def record_shard_launch(engine, queries, hubs, capture: dict) -> dict:
+    """Rerun (b)'s requests (one ``eval_many``) and hub closures (one call
+    each) on the sharded dense engine with a recorder on
+    ``ops.packed_superstep``: it keeps a copy of the inputs of the shard
+    launch with the most non-zero transition inputs ``X = g[obj] &
+    Bp[pred]`` over its rows, as phase 5 keeps its heaviest superstep
+    (padding edges, inert-labelled with ``obj = 0``, read node 0's
+    gathered words but give no X), in ``capture["shard_superstep"]``:
+    the launch's arguments and its gathered [R, V_pad, W] buffer, for the
+    kernels line.  Returns the answers, the seconds and the launches
+    recorded."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    original = kops.packed_superstep
+    edges = engine.sharded._edges
+    seen = [0]
+
+    def recording(f, v, nxt, spare, flag, stamp, Bp, bwd, subj, pred, obj,
+                  gathered=None):
+        seen[0] += 1
+        live = int(torch.count_nonzero(gathered.index_select(1, obj) &
+                                       Bp.index_select(1, pred)))
+        if live > capture.get("shard_live", -1):
+            state = tuple(t.clone() for t in (f, v, nxt, spare, flag))
+            capture.update(
+                shard_live=live, shard_superstep=(
+                    (*state, stamp, Bp, bwd, subj, pred, obj),
+                    gathered.clone()),
+                shard_of=next(k for k, row in enumerate(edges)
+                              for e in row if e[0] is subj))
+        original(f, v, nxt, spare, flag, stamp, Bp, bwd, subj, pred, obj,
+                 gathered=gathered)
+
+    engine.results.clear()
+    kops.packed_superstep = recording
+    try:
+        t0 = time.perf_counter()
+        answers = engine.eval_many(queries)
+        hub_answers = []
+        for q in hubs:
+            engine.results.clear()
+            hub_answers.append(engine.eval_many([q])[0])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        kops.packed_superstep = original
+    if not seen[0]:
+        fail("the recorded rerun reached no shard launch")
+    return {"answers": (answers, hub_answers), "seconds": secs,
+            "launches_recorded": seen[0],
+            "heaviest_transition_words": capture["shard_live"],
+            "heaviest_shard": capture["shard_of"]}
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -1421,7 +1765,7 @@ KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
 
 
 def kernels_line(capture: dict, launches: dict, errs: dict,
-                 superstep_paths: dict):
+                 superstep_paths: dict, nfa_paths: dict):
     """One entry per kernel, timed at the largest launch of its path:
     ``nfa_step`` at phase 2's, ``packed_superstep`` at phase 5's heaviest
     superstep (the most non-zero transition words), with its phase-1 time
@@ -1429,8 +1773,13 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     on each path (``launches_by_path``), ``segment_or`` (on no path since
     ``packed_superstep`` took its place) on that superstep's values, the
     rank kernels at phase 6's largest level, ``segmented_or_scan`` (on no
-    path) at phase 1's full size.  ``library_ms`` is null throughout: no
-    single PyTorch call ORs or popcounts packed words."""
+    path) at phase 1's full size.  ``shard``: ``nfa_step`` at phase 8's
+    largest shard launch, ``packed_superstep`` at phase 8 (b)'s heaviest
+    shard launch (R = 16 rows, the shard's local state and edges, the
+    gathered frontier; ``record_shard_launch``), each with its launches
+    on the mesh path.  ``library_ms``
+    is null throughout: no single PyTorch call ORs or popcounts packed
+    words."""
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
     from repro_torch.kernels import ref
@@ -1482,11 +1831,40 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                   {"NW": int(words.shape[0]), "Q": int(q.shape[0])}),
     }
     rows = capture["rows"]
-    extra = {"packed_superstep": {
-        "launches_by_path": superstep_paths,
-        "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "max_abs_err")}}}
+    sX, sbwd = capture["shard_X"], capture["shard_bwd"]
+    shard_nfa_bound = nfa_bound(sX, sbwd.shape[0])
+    shard_args, gathered = capture["shard_superstep"]
+    shard_sup_bound = superstep_bound(*shard_args[:2], *shard_args[6:],
+                                      gathered=gathered)
+    shard_shape = {"shard": capture["shard_of"], "shards": MESH_SHARDS,
+                   "R": int(gathered.shape[0]),
+                   "E_local": int(shard_args[8].shape[0]),
+                   "V_local": int(shard_args[0].shape[1]),
+                   "V_pad": int(gathered.shape[1]),
+                   "S": int(shard_args[7].shape[1]),
+                   "W": int(gathered.shape[2]),
+                   "transition_words": capture["shard_live"]}
+    extra = {
+        "nfa_step": {
+            "launches_by_path": nfa_paths,
+            "shard": {"launches": nfa_paths["mesh"], "N": int(sX.shape[0]),
+                      "S": int(sbwd.shape[0]), "W": int(sX.shape[1]),
+                      **check_and_time(errs, "nfa_step", knfa.nfa_step_cuda,
+                                       ref.nfa_step_ref, (sX, sbwd),
+                                       "the mesh's largest shard launch"),
+                      "bound_ms": shard_nfa_bound[0],
+                      "bound_by": shard_nfa_bound[1]}},
+        "packed_superstep": {
+            "launches_by_path": superstep_paths,
+            "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err")},
+            "shard": {"launches": superstep_paths["mesh"], **shard_shape,
+                      **superstep_check_and_time(
+                          errs, shard_args, "the mesh's heaviest shard "
+                          "launch", gathered=gathered),
+                      "bound_ms": shard_sup_bound[0],
+                      "bound_by": shard_sup_bound[1]}}}
     out = []
     for name, (measure, (b, by), shape) in timed.items():
         times = measure()
@@ -1537,17 +1915,26 @@ def main() -> int:
     emit(packed)
     rank = phase_rank(engine.ring, capture)
     emit(rank)
-    dense = phase_dense(graph, queries, answers, skipped, hub_answers, adds)
-    del hub_answers
+    dense, dense_engine, stats_s = phase_dense(graph, queries, answers,
+                                               skipped, hub_answers, adds)
     emit(dense)
+    mesh = phase_mesh(graph, engine.ring, dense_engine.graph_stats, stats_s,
+                      queries, answers, skipped, hub_answers, dense_engine,
+                      capture)
+    del hub_answers, dense_engine
+    emit(mesh)
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],
-             "dense": dense["kernel_launches"]["packed_superstep"]}
+             "dense": dense["kernel_launches"]["packed_superstep"],
+             "mesh": mesh["kernel_launches"]["packed_superstep"]}
+    nfa_paths = {"ring": report["kernel_launches"],
+                 "mesh": mesh["kernel_launches"]["nfa_step"]}
     kernels = kernels_line(capture, {
-        "nfa_step": report["kernel_launches"],
+        "nfa_step": sum(nfa_paths.values()),
         "packed_superstep": sum(paths.values()),
         "segment_or": packed["kernel_launches"]["segment_or"] +
-        dense["kernel_launches"]["segment_or"],
-        **rank["kernel_launches"]}, errs, paths)
+        dense["kernel_launches"]["segment_or"] +
+        mesh["kernel_launches"]["segment_or"],
+        **rank["kernel_launches"]}, errs, paths, nfa_paths)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(kernels)                      # the line before the last
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
 """Carry the JAX package's state into the port.
 
 Duck-typed on purpose: the port never imports the JAX package, so these
-take any object (or state dict) of the right shape.
+take any object (or state dict) of the right shape.  Engine state
+(statistics, live-update overlays) also travels between the packages
+through checkpoints: :mod:`repro_torch.checkpoint` reads and writes the
+JAX package's format, so nothing here converts it.
 """
 from __future__ import annotations
 

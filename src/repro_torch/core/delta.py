@@ -20,7 +20,7 @@ module makes the triple set mutable without rebuilding it per write:
     cache entries stay valid;
   * **checkpointing** — :meth:`DeltaOverlay.to_state` /
     :meth:`DeltaOverlay.from_state` are flat array pytrees that ride
-    :mod:`repro.checkpoint` unchanged, so a restored engine resumes
+    :mod:`repro_torch.checkpoint` unchanged, so a restored engine resumes
     *mid-overlay* (same epoch, same pending deltas) without replaying
     the mutation log.
 
@@ -49,6 +49,7 @@ from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 import numpy as np
 
 from ..obs import trace as otrace
+from .stats import host_array
 
 Triple = Tuple[int, int, int]
 
@@ -398,7 +399,7 @@ class DeltaOverlay:
 
     # -- checkpoint serialization -------------------------------------------
     def to_state(self) -> Dict[str, np.ndarray]:
-        """Flat array pytree for :mod:`repro.checkpoint`.  Only the p < P
+        """Flat array pytree for :mod:`repro_torch.checkpoint`.  Only the p < P
         halves are stored (the overlay is completion-symmetric by
         construction); ``from_state`` re-mirrors them."""
         ex = [(s, p, o) for p in sorted(self._extra_pairs)
@@ -423,23 +424,24 @@ class DeltaOverlay:
 
     @classmethod
     def from_state(cls, state: Dict[str, Any], graph) -> "DeltaOverlay":
+        """Leaves may be numpy arrays or tensors on any device."""
+        state = {k: host_array(v) for k, v in state.items()}
         ov = cls.from_graph(graph)
-        if int(np.asarray(state["num_nodes"])) != ov.num_nodes or \
-                int(np.asarray(state["num_preds"])) != ov.num_preds:
+        if int(state["num_nodes"]) != ov.num_nodes or \
+                int(state["num_preds"]) != ov.num_preds:
             raise ValueError("overlay state does not match the base graph")
         P = ov.num_preds
-        for s, p, o in np.asarray(state["extra"], dtype=np.int64):
+        for s, p, o in state["extra"].astype(np.int64).reshape(-1, 3):
             ov._add_completed(int(s), int(p), int(o))
             ov._add_completed(int(o), int(p) + P, int(s))
-        for s, p, o in np.asarray(state["tomb"], dtype=np.int64):
+        for s, p, o in state["tomb"].astype(np.int64).reshape(-1, 3):
             ov._remove_completed(int(s), int(p), int(o))
             ov._remove_completed(int(o), int(p) + P, int(s))
-        ov.epoch = int(np.asarray(state["epoch"]))
-        ov.pred_epoch = np.asarray(state["pred_epoch"],
-                                   dtype=np.int64).copy()
-        ov.touched = set(np.asarray(state["touched"]).tolist())
-        ov.adds_applied = int(np.asarray(state["adds_applied"]))
-        ov.removes_applied = int(np.asarray(state["removes_applied"]))
+        ov.epoch = int(state["epoch"])
+        ov.pred_epoch = state["pred_epoch"].astype(np.int64)
+        ov.touched = set(state["touched"].tolist())
+        ov.adds_applied = int(state["adds_applied"])
+        ov.removes_applied = int(state["removes_applied"])
         return ov
 
 
@@ -521,7 +523,7 @@ class LiveUpdateEngine:
         return self.delta.effective_graph(self._base_graph())
 
     def overlay_state(self):
-        """Checkpointable overlay pytree (see ``repro.checkpoint``);
+        """Checkpointable overlay pytree (see ``repro_torch.checkpoint``);
         ``None`` when no mutation ever happened."""
         return self.delta.to_state() if self.delta is not None else None
 

@@ -23,7 +23,8 @@ which computes the same function (the reference's own
 ``test_packed_matches_dense`` holds the two equal).  A node is an
 *answer* when its state-0 (initial) bit lights up: bit 0 of word 0.
 
-One loop (:func:`bfs_rows`) runs every BFS: R rows at once, each with
+One loop (:func:`bfs_rows`, whose host side :func:`superstep_loop` also
+drives the sharded supersteps) runs every BFS: R rows at once, each with
 its own tables ([R, L+1, W] and [R, S_pad, W]: the multi-source batch
 shares one automaton, the heterogeneous ``eval_many`` batch gives each
 row its own, padded to its bucket's power-of-two state width), over one
@@ -42,9 +43,15 @@ tombstoned base edges to it (they can never fire) and appends the
 overlay's insert buffer as extra edge rows (pow2-padded with inert
 rows, unsorted by subject: the kernel's scatter is exact in any order).
 
+Mesh sharding (``mesh=``/``shards=N``): the node axis of every one of
+these BFS shapes is range-partitioned over a mesh's data axes and the
+supersteps run shard-local over one frontier all-gather per superstep
+(:class:`~repro_torch.core.distributed.ShardedDenseExec`); its superstep
+counts land in ``QueryStats.supersteps`` on every sharded run, as in the
+JAX package.  ANALYZE runs unsharded: the answers are the same.
+
 The engine's device is explicit: ``"cuda"`` unless the caller asks for
-``"cpu"`` (the kernel's plain version).  Mesh sharding is not ported
-(ROADMAP queue 1, item 8).
+``"cpu"`` (the kernel's plain version).
 """
 from __future__ import annotations
 
@@ -152,6 +159,39 @@ def _chunk(chunks_done: int, deadline, stepwise: bool) -> int:
     return min(_DEADLINE_CHUNK, 1 << chunks_done)
 
 
+def superstep_loop(chunk: Callable[[int, int], int], max_steps: int,
+                   deadline: Optional[float] = None,
+                   stepwise: bool = False,
+                   after: Optional[Callable[[int], None]] = None) -> int:
+    """The host loop of one BFS, unsharded (:func:`bfs_rows`) or on a mesh
+    (``ShardedDenseExec.run_rows``).  ``chunk(it, k)`` queues supersteps
+    ``it .. it + k - 1`` (superstep n stamps the kernel's flag with n + 1
+    where it finds a word) and returns the flag: the chunk's one host
+    sync.  ``deadline`` (absolute ``time.time()`` seconds) is checked
+    before each chunk and raises ``TimeoutError``; ``after(it)`` is
+    called after each chunk with the supersteps so far.  Returns the
+    supersteps that ran, the JAX chunk loops' count (the superstep that
+    found nothing is one of them)."""
+    it = 0         # supersteps that ran (launches that did work)
+    chunks = 0
+    active = max_steps > 0
+    while active:
+        if deadline is not None and time.time() > deadline:
+            raise TimeoutError("query deadline exceeded")
+        k = min(_chunk(chunks, deadline, stepwise), max_steps - it)
+        chunks += 1
+        last = chunk(it, k)
+        launched = it + k
+        # flag: the last superstep that found a word; the one after it
+        # found nothing and ran, the rest of the chunk changed nothing
+        # (so that one's output buffer is still all zero)
+        it = launched if last == launched else last + 1
+        active = last == launched and it < max_steps
+        if after is not None:
+            after(it)
+    return it
+
+
 def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
              frontier: torch.Tensor, max_steps: int,
              visited: Optional[torch.Tensor] = None,
@@ -184,18 +224,12 @@ def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
     # (zero), bufs[(n + 2) % 3] the frontier before (it zeroes it)
     bufs = [frontier, torch.zeros_like(frontier), torch.zeros_like(frontier)]
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    stepwise = collector is not None or on_step is not None
-    it = 0         # supersteps that ran (launches that did work)
-    chunks = 0
-    active = max_steps > 0 and bool(frontier.any())
-    while active:
-        if deadline is not None and time.time() > deadline:
-            raise TimeoutError("query deadline exceeded")
-        k = min(_chunk(chunks, deadline, stepwise), max_steps - it)
-        chunks += 1
+    counts: list = []     # ANALYZE: the chunk's (frontier, visited) bits
+
+    def chunk(it: int, k: int) -> int:
         if collector is not None:
-            fin = _count_bits(bufs[it % 3])
-            vin = _count_bits(v | bufs[it % 3])
+            counts[:] = [_count_bits(bufs[it % 3]),
+                         _count_bits(v | bufs[it % 3])]
         with otrace.span("dense.bfs_chunk", cat="kernel",
                          **(span if span is not None else {"steps": k})):
             for n in range(it, it + k):
@@ -204,17 +238,17 @@ def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
                     on_step(f, v, Bp, PRED)
                 ops.packed_superstep(f, v, nxt, spare, flag, n + 1, Bp, PRED,
                                      subj, pred, obj)
-            last = int(flag.item())   # the chunk's one host sync
-        launched = it + k
-        # flag: the last superstep that found a word; the one after it
-        # found nothing and ran, the rest of the chunk changed nothing
-        # (so bufs[it % 3], that one's output, is still all zero)
-        it = launched if last == launched else last + 1
-        active = last == launched and it < max_steps
-        if collector is not None:
-            collector.append({
-                "frontier": fin,
-                "activations": _count_bits(v | bufs[it % 3]) - vin})
+            return int(flag.item())
+
+    def record(it: int) -> None:
+        fin, vin = counts
+        collector.append({"frontier": fin,
+                          "activations": _count_bits(v | bufs[it % 3]) - vin})
+
+    it = superstep_loop(
+        chunk, max_steps if bool(frontier.any()) else 0, deadline,
+        stepwise=collector is not None or on_step is not None,
+        after=record if collector is not None else None)
     frontier = bufs[it % 3]
     return v | frontier, frontier, it
 
@@ -241,8 +275,15 @@ class DenseRPQ(dl.LiveUpdateEngine):
 
     ``device``: where the BFS runs, ``"cuda"`` unless the caller asks for
     ``"cpu"``; without a card the default raises before the build.
-    ``mesh=``/``shards=`` raise :class:`NotImplementedError` (ROADMAP
-    queue 1, item 8).
+
+    Sharding: ``mesh=`` (a :class:`~repro_torch.core.distributed.Mesh`)
+    or ``shards=N`` (the first N devices of ``device``'s kind) routes
+    every BFS — single, multi-source, and heterogeneous ``eval_many``
+    buckets, under all planner shapes — through the row-partitioned
+    sharded executor (:class:`~repro_torch.core.distributed.
+    ShardedDenseExec`); ``data_axes`` names the mesh axes the node axis is
+    split over and ``model_axis`` optionally edge-splits each shard.
+    Sharded results are identical to single-device ``eval``.
 
     ``deadline_s`` on :meth:`eval` (per query) and :meth:`eval_many`
     (batch-wide, like the ring engine) raises ``TimeoutError``, checked
@@ -258,10 +299,6 @@ class DenseRPQ(dl.LiveUpdateEngine):
                  compact_threshold: Optional[int] =
                  dl.DEFAULT_COMPACT_THRESHOLD,
                  device=None):
-        if mesh is not None or shards is not None:
-            raise NotImplementedError(
-                "sharded dense execution is not ported yet "
-                "(ROADMAP queue 1, item 8)")
         self.device = ops.resolve_device(device)
         if planner not in ("cost", "naive", "forward", "reverse", "split"):
             raise ValueError(f"unknown planner policy {planner!r}")
@@ -285,8 +322,13 @@ class DenseRPQ(dl.LiveUpdateEngine):
         self._edge_eff: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self._deadline: Optional[float] = None      # absolute, per eval call
         self._analyze = None        # ANALYZE superstep collector (obs.explain)
-        self._superstep_acc = 0     # host-stepped superstep count
-        self.sharded = None         # no mesh: the explain layer reads this
+        self._superstep_acc = 0     # host-stepped/sharded superstep count
+        self.sharded = None
+        if mesh is not None or shards is not None:
+            from .distributed import ShardedDenseExec, resolve_mesh
+            rmesh, raxes = resolve_mesh(mesh, shards, data_axes, model_axis,
+                                        device=self.device)
+            self.sharded = ShardedDenseExec(self.dg, rmesh, raxes, model_axis)
 
     @property
     def graph_stats(self) -> GraphStats:
@@ -316,7 +358,8 @@ class DenseRPQ(dl.LiveUpdateEngine):
         insert buffer is appended as extra edge rows (padded to a power
         of two).  The arrays are fresh tensors, never the old ones
         mutated, so a stepper slot pinned to the old ones reads its
-        admission epoch."""
+        admission epoch.  A mesh-sharded engine re-partitions the same
+        arrays."""
         ov = self.delta
         self._edge_eff = {}
         subj, pred, obj = self.dg.host
@@ -335,11 +378,17 @@ class DenseRPQ(dl.LiveUpdateEngine):
             pad_s[:ds.size] = ds
             pad_p[:dp.size] = dp
             pad_o[:do.size] = do
-            self._eff = tuple(
-                torch.from_numpy(np.concatenate([a, pad])).to(self.device)
-                for a, pad in ((subj, pad_s), (pred, pad_p), (obj, pad_o)))
+            subj, pred, obj = (np.concatenate([a, pad]) for a, pad in
+                               ((subj, pad_s), (pred, pad_p), (obj, pad_o)))
+            self._eff = tuple(torch.from_numpy(a).to(self.device)
+                              for a in (subj, pred, obj))
         else:
             self._eff = None
+        if self.sharded is not None:
+            from types import SimpleNamespace
+            self.sharded.refresh_edges(SimpleNamespace(
+                subj=subj, pred=pred, obj=obj,
+                num_nodes=self.dg.num_nodes, num_labels=L))
 
     def _edges(self) -> Edges:
         """The (subj, pred, obj) device arrays every BFS runs over —
@@ -364,6 +413,8 @@ class DenseRPQ(dl.LiveUpdateEngine):
         self._edge_eff = {}
         if self._stats is not None:
             self._stats = GraphStats.from_graph(self.graph)
+        if self.sharded is not None:
+            self.sharded.refresh_edges(self.dg)
         self.compactions += 1
 
     def _resolve_lit(self, lit: rx.Lit) -> int:
@@ -462,15 +513,29 @@ class DenseRPQ(dl.LiveUpdateEngine):
         deadline or ANALYZE (the JAX package's host-stepped runs)."""
         return self._deadline is not None or self._analyze is not None
 
-    def _bfs(self, B, PRED, frontier, max_steps: int) -> np.ndarray:
-        """One dispatch of :func:`bfs_rows` on the current edges, with
+    def _use_sharded(self) -> bool:
+        """Whether this call's BFS runs on the mesh: ANALYZE runs
+        unsharded (per-superstep collector) even on a sharded engine —
+        results are identical, only the dispatch site moves."""
+        return self.sharded is not None and self._analyze is None
+
+    def _bfs(self, B, PRED, frontier, max_steps: int,
+             table_key=None) -> np.ndarray:
+        """One dispatch of :func:`bfs_rows` on the current edges (or of
+        the sharded executor, whose supersteps are always counted), with
         this call's deadline and ANALYZE collector.  Returns the [R, V]
         hit planes (initial-state bits) on the host."""
-        visited, _f, it = bfs_rows(self._edges(), B, PRED, frontier,
-                                   max_steps, deadline=self._deadline,
-                                   collector=self._analyze)
-        if self._stepped():
+        if self._use_sharded():
+            visited, it = self.sharded.run_rows(
+                B, PRED, frontier, max_steps, deadline=self._deadline,
+                table_key=table_key)
             self._superstep_acc += it
+        else:
+            visited, _f, it = bfs_rows(self._edges(), B, PRED, frontier,
+                                       max_steps, deadline=self._deadline,
+                                       collector=self._analyze)
+            if self._stepped():
+                self._superstep_acc += it
         return (visited[:, :, 0] & 1).bool().cpu().numpy()
 
     def _frontier(self, R: int, W: int, rows, nodes,
@@ -494,7 +559,9 @@ class DenseRPQ(dl.LiveUpdateEngine):
         if g.F & ~1 == 0:
             return np.zeros(V, dtype=bool)
         max_steps = V * (g.m + 1) + 1
-        if self._stepped():
+        if self._use_sharded():
+            self.traces.record("sharded_rows", 1, g.m + 1)
+        elif self._stepped():
             self.traces.record("bfs_chunk", V, g.m + 1)
         else:
             self.traces.record("bfs", V, g.m + 1, max_steps)
@@ -503,7 +570,7 @@ class DenseRPQ(dl.LiveUpdateEngine):
         frontier = self._frontier(1, g.nwords, np.zeros_like(objs), objs,
                                   np.broadcast_to(row, (objs.size, row.size)))
         return self._bfs(plan.B[None], plan.PRED[None], frontier,
-                         max_steps)[0]
+                         max_steps, table_key=(plan, 1))[0]
 
     def _run_from_batched(self, plan: _DensePlan, starts: Sequence[int],
                           batch_size: Optional[int] = None) -> np.ndarray:
@@ -519,17 +586,24 @@ class DenseRPQ(dl.LiveUpdateEngine):
         frow = _start_row(g)
         for i in range(0, len(starts), Bsz):
             chunk = np.asarray(starts[i : i + Bsz], dtype=np.int64)
-            R = len(chunk)
-            if self._stepped():
+            n = len(chunk)
+            R = n
+            if self._use_sharded():
+                # the tail chunk pads to Bsz rows (zero rows converge at
+                # once), so the tables' device copies keyed by (plan,
+                # Bsz) serve every chunk
+                R = Bsz
+                self.traces.record("sharded_rows", Bsz, S)
+            elif self._stepped():
                 self.traces.record("bfs_chunk_batched", R, V, S)
             else:
                 self.traces.record("bfs_batched", R, V, S)
-            frontier = self._frontier(R, g.nwords, np.arange(R), chunk,
-                                      np.broadcast_to(frow, (R, frow.size)))
-            hits[i : i + R] = self._bfs(
+            frontier = self._frontier(R, g.nwords, np.arange(n), chunk,
+                                      np.broadcast_to(frow, (n, frow.size)))
+            hits[i : i + n] = self._bfs(
                 plan.B.expand(R, -1, -1).contiguous(),
                 plan.PRED.expand(R, -1, -1).contiguous(), frontier,
-                V * S + 1)
+                V * S + 1, table_key=(plan, Bsz))[:n]
         return hits
 
     @staticmethod
@@ -601,7 +675,9 @@ class DenseRPQ(dl.LiveUpdateEngine):
                 frontier = self._frontier(
                     Bsz, W, live, nodes,
                     np.array(words, dtype=np.uint32).reshape(-1, W))
-                if self._stepped():
+                if self._use_sharded():
+                    self.traces.record("sharded_rows", Bsz, S_pad)
+                elif self._stepped():
                     self.traces.record("bfs_chunk_hetero", Bsz, S_pad)
                 else:
                     self.traces.record("bfs_hetero", Bsz, S_pad)

@@ -669,8 +669,17 @@ def make_engine(graph, kind: str = "ring", device=None, **kwargs):
     ``device``: where the engine's kernels run — ``"cuda"`` by default;
     without a CUDA device this raises :class:`RuntimeError` before the
     index is built.  ``"cpu"`` runs the kernels' plain PyTorch versions
-    and is taken only when the caller asks for it.  ``mesh=``/``shards=``
-    raise :class:`NotImplementedError` (sharding is not ported).
+    and is taken only when the caller asks for it.
+
+    Sharding knobs (both engines, forwarded to the constructors):
+    ``mesh=`` a :class:`~repro_torch.core.distributed.Mesh` (a device may
+    appear more than once), or ``shards=N`` for a 1-D ``("data",)`` mesh
+    over the first N visible devices of ``device``'s kind; ``data_axes=``
+    names the mesh axes the wavefront is partitioned over (default: all
+    axes, minus ``model_axis=`` on the dense engine, whose edges can
+    additionally be split over a model axis).  Sharded results are
+    identical to single-device ``eval`` — the mesh only changes where
+    the supersteps run (see :mod:`repro_torch.core.distributed`).
 
     Live updates (both engines): the built engine exposes
     ``add_edges``/``remove_edges``/``epoch``/``compact()`` — exact

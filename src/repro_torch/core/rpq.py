@@ -191,8 +191,16 @@ class RingRPQ(dl.LiveUpdateEngine):
     :class:`~repro_torch.core.stats.GraphStats` (e.g. restored from a
     checkpoint); harvested from the ring on first use otherwise.
 
-    Sharding (``mesh=``/``shards=``) is not ported yet and raises
-    :class:`NotImplementedError`.
+    Sharding: ``mesh=`` (a :class:`~repro_torch.core.distributed.Mesh`)
+    or ``shards=N`` (the first N devices of ``device``'s kind)
+    range-splits every superstep's merged task list over the mesh's data
+    axes — each shard steps its slice through ``ops.nfa_step`` on its
+    device and the results are gathered (see
+    :func:`repro_torch.core.distributed.make_task_shard_step`).
+    Traversal order, results, and work counters are unchanged: only where
+    the bit-parallel transition executes moves.  With a mesh set the auto
+    kernel threshold is 64 on any device (sharding is an explicit
+    opt-in), so wavefronts of >= 64 tasks dispatch sharded.
     """
 
     def __init__(self, ring: Ring, paper_dv: bool = False,
@@ -202,13 +210,10 @@ class RingRPQ(dl.LiveUpdateEngine):
                  planner: str = "cost",
                  stats: Optional[GraphStats] = None,
                  mesh=None, shards: Optional[int] = None,
+                 data_axes=None,
                  compact_threshold: Optional[int] =
                  dl.DEFAULT_COMPACT_THRESHOLD,
                  device=None):
-        if mesh is not None or shards is not None:
-            raise NotImplementedError(
-                "sharded ring execution is not ported yet "
-                "(ROADMAP queue 1, item 8)")
         self.device = ops.resolve_device(device)
         if planner not in ("cost", "naive", "forward", "reverse", "split"):
             raise ValueError(f"unknown planner policy {planner!r}")
@@ -225,12 +230,24 @@ class RingRPQ(dl.LiveUpdateEngine):
         self.compactions = 0
         self.traces = TraceTracker()     # distinct kernel dispatch signatures
         self.bundle_kernel_batches = 0   # multi-plan nfa_step dispatches
+        self.sharded_kernel_batches = 0  # mesh-sharded nfa_step dispatches
         self._auto_threshold: Optional[float] = None
         self._stats = stats
         self._edge_s: Optional[np.ndarray] = None   # completed triples,
         self._edge_o: Optional[np.ndarray] = None   # predicate-major order
         self._edge_eff: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        self._bwd_dev: Dict[int, tuple] = {}  # id(table) -> (host, device)
+        self.mesh = None
+        self.data_axes: tuple = ()
+        self._task_step = None           # the sharded transition
+        # id(table) -> (host table, {device: its copy there})
+        self._bwd_dev: Dict[int, tuple] = {}
+        if mesh is not None or shards is not None:
+            from .distributed import resolve_mesh
+            self.mesh, self.data_axes = resolve_mesh(mesh, shards, data_axes,
+                                                     device=self.device)
+            self._num_shards = 1
+            for a in self.data_axes:
+                self._num_shards *= int(self.mesh.shape[a])
 
     @property
     def graph_stats(self) -> GraphStats:
@@ -780,31 +797,64 @@ class RingRPQ(dl.LiveUpdateEngine):
         if self.kernel_threshold is not None:
             return self.kernel_threshold
         if self._auto_threshold is None:
-            # the plain version on the host loses to the byte-split
-            # tables at any size; on the card the kernel pays off quickly
-            self._auto_threshold = 64.0 if self.device.type == "cuda" \
-                else float("inf")
+            # sharding is an explicit opt-in: dispatch real wavefronts
+            # through the mesh on any device.  Otherwise the plain version
+            # on the host loses to the byte-split tables at any size; on
+            # the card the kernel pays off quickly
+            self._auto_threshold = 64.0 if self.mesh is not None or \
+                self.device.type == "cuda" else float("inf")
         return self._auto_threshold
 
+    def _bwd_copies(self, bwd: np.ndarray, devices) -> Dict:
+        """``bwd``'s copy on each of ``devices``.  The packed table is
+        identical across a traversal's supersteps (memoized per
+        plan/bundle) — ship it to a device once, not per dispatch; key on
+        id() while holding the host array alive so the id cannot be
+        reused."""
+        cached = self._bwd_dev.get(id(bwd))
+        if cached is None:
+            cached = (bwd, {})
+            self._bwd_dev[id(bwd)] = cached
+            while len(self._bwd_dev) > 64:   # bundles churn per batch
+                self._bwd_dev.pop(next(iter(self._bwd_dev)))
+        copies = cached[1]
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = ops.words_to_tensor(bwd, dev)
+        return copies
+
     def _nfa_step_batch(self, X: np.ndarray, bwd: np.ndarray) -> np.ndarray:
-        """Dispatch one packed task batch through ``kernels/nfa_step`` on
-        ``self.device``: the uint32 words cross as int32 views, and the
-        result comes back as uint32."""
-        self.traces.record("nfa_step", X.shape[0], X.shape[1])
-        with otrace.span("ring.nfa_step", cat="kernel",
-                         tasks=int(X.shape[0]), words=int(X.shape[1])):
-            # the packed table is identical across a traversal's
-            # supersteps (memoized per plan/bundle) — ship it to the
-            # device once, not per dispatch; key on id() while holding
-            # the host array alive so the id cannot be reused
-            cached = self._bwd_dev.get(id(bwd))
-            if cached is None:
-                cached = (bwd, ops.words_to_tensor(bwd, self.device))
-                self._bwd_dev[id(bwd)] = cached
-                while len(self._bwd_dev) > 64:   # bundles churn per batch
-                    self._bwd_dev.pop(next(iter(self._bwd_dev)))
-            Y = ops.nfa_step(ops.words_to_tensor(X, self.device), cached[1])
-            return ops.tensor_to_words(Y)
+        """Dispatch one packed task batch through ``kernels/nfa_step`` —
+        on the mesh when sharding is on (range-split over the data
+        shards, pow2-padded per shard), else on ``self.device``: the
+        uint32 words cross as int32 views, and the result comes back as
+        uint32."""
+        if self.mesh is None:
+            self.traces.record("nfa_step", X.shape[0], X.shape[1])
+            with otrace.span("ring.nfa_step", cat="kernel",
+                             tasks=int(X.shape[0]), words=int(X.shape[1])):
+                bwd_t = self._bwd_copies(bwd, [self.device])[self.device]
+                Y = ops.nfa_step(ops.words_to_tensor(X, self.device), bwd_t)
+                return ops.tensor_to_words(Y)
+        if self._task_step is None:
+            from .distributed import make_task_shard_step
+            self._task_step = make_task_shard_step(self.mesh, self.data_axes)
+        copies = self._bwd_copies(bwd, self._task_step.devices)
+        n, N = self._num_shards, X.shape[0]
+        per = 1
+        while per * n < N:
+            per *= 2
+        Xp = np.zeros((per * n, X.shape[1]), dtype=np.uint32)
+        Xp[:N] = X
+        self.traces.record("task_shard_step", per * n, X.shape[1])
+        with otrace.span("ring.task_shard_step", cat="kernel",
+                         tasks=per * n, words=int(X.shape[1]),
+                         shards=n):
+            # the copy back to the host inside this span covers the
+            # all-gather merge
+            Y = self._task_step(Xp, copies)
+        self.sharded_kernel_batches += 1
+        return Y[:N]
 
     def _transition_many(self, tasks: List[_Task],
                          bundle: PlanBundle) -> List[int]:

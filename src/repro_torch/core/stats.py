@@ -16,7 +16,7 @@ at index build:
 The whole object is a handful of ``int64`` arrays (O(P) space), cheap
 enough to compute eagerly at index build and small enough to serialize
 with checkpoints: :meth:`GraphStats.to_state` returns a flat dict of
-numpy arrays that rides :mod:`repro.checkpoint` ``save``/``restore``
+numpy arrays that rides :mod:`repro_torch.checkpoint` ``save``/``restore``
 unchanged, and :meth:`GraphStats.from_state` rebuilds the object on the
 other side (so a restored server never rescans the graph to plan).
 """
@@ -108,7 +108,7 @@ class GraphStats:
 
     # -- checkpoint serialization -------------------------------------------
     def to_state(self) -> Dict[str, np.ndarray]:
-        """Flat array pytree for :mod:`repro.checkpoint` (scalars as 0-d
+        """Flat array pytree for :mod:`repro_torch.checkpoint` (scalars as 0-d
         int64 arrays so every leaf is an array)."""
         return {
             "num_nodes": np.int64(self.num_nodes),
@@ -121,11 +121,21 @@ class GraphStats:
 
     @classmethod
     def from_state(cls, state: Dict[str, Any]) -> "GraphStats":
+        """Leaves may be numpy arrays or tensors on any device (what
+        :func:`repro_torch.checkpoint.restore` returns)."""
         return cls(
-            num_nodes=int(np.asarray(state["num_nodes"])),
-            num_edges=int(np.asarray(state["num_edges"])),
-            num_preds_completed=int(np.asarray(state["num_preds_completed"])),
-            freq=np.asarray(state["freq"], dtype=np.int64),
-            distinct_subj=np.asarray(state["distinct_subj"], dtype=np.int64),
-            distinct_obj=np.asarray(state["distinct_obj"], dtype=np.int64),
+            num_nodes=int(host_array(state["num_nodes"])),
+            num_edges=int(host_array(state["num_edges"])),
+            num_preds_completed=int(host_array(state["num_preds_completed"])),
+            freq=host_array(state["freq"], np.int64),
+            distinct_subj=host_array(state["distinct_subj"], np.int64),
+            distinct_obj=host_array(state["distinct_obj"], np.int64),
         )
+
+
+def host_array(x: Any, dtype=None) -> np.ndarray:
+    """A state leaf as a numpy array: numpy and scalars as they are, a
+    tensor on any device copied to the host."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)

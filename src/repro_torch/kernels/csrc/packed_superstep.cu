@@ -6,13 +6,16 @@
 // gathers and masks around them in the body of repro/core/packed.py's
 // while_loop; on the dense engine's path, the XLA superstep of
 // repro/core/dense.py:136 _edge_scatter / _step_core, vmapped over rows
-// as in _bfs_hetero (one automaton a row).  For each row r, frontier f_r
-// and visited v_r ([V, W] uint32 words), tables Bp_r [L, W] and bwd_r
-// [S, W], and edges subj, pred, obj ([E] int32) shared by every row, one
-// launch computes
+// as in _bfs_hetero (one automaton a row); on a mesh, one shard's
+// superstep, repro/core/distributed.py:159 _local_bfs_step.  For each row
+// r, frontier f_r and visited v_r ([V, W] uint32 words), the frontier g_r
+// that obj indexes ([Vg, W]: f_r itself, or on a mesh the frontier
+// gathered over every shard, of which f_r is the shard's own rows),
+// tables Bp_r [L, W] and bwd_r [S, W], and edges subj, pred, obj ([E]
+// int32, subj local) shared by every row, one launch computes
 //
 //   v_r |= f_r                                  (the frontier is visited)
-//   nxt_r[s] |= OR_{e : subj[e] == s} T'_r[f_r[obj[e]] & Bp_r[pred[e]]]
+//   nxt_r[s] |= OR_{e : subj[e] == s} T'_r[g_r[obj[e]] & Bp_r[pred[e]]]
 //               & ~v_r[s]
 //   spare_r = 0                                 (the next superstep's nxt)
 //   *flag = stamp, if some word ORed into some nxt_r is non-zero
@@ -25,14 +28,16 @@
 // The flag holds the stamp of the last superstep that found a word, so a
 // caller may queue several supersteps before it reads the flag: a launch
 // whose flag is below stamp - 1 follows a superstep that found nothing,
-// so its frontier is empty and it returns at once, writing nothing.
+// so its frontier is empty and it returns at once, writing nothing.  The
+// shards of a mesh that sit on one device share one flag, so a launch
+// stops only when no shard found a word (the gathered frontier is empty).
 // Ids out of range contribute nothing; bits j >= S of X select nothing.
 // A label row of zeros (the dense engine's inert label) selects nothing.
 //
 // Race-free: threads OR f into v while others read v[s] | f[s] for the
 // mask, and they read the same value whether or not f is in v yet.  OR
 // does not depend on order, so the atomics make nxt exact for subjects in
-// any order.  Nothing reads spare or writes f.  Every thread of a launch
+// any order.  Nothing reads spare or writes f or g.  Every thread of a launch
 // reads the flag before any writes it, or reads the launch's own stamp.
 //
 // What bounds it: bytes.  Every edge's obj must be read (4*E) and every
@@ -91,17 +96,17 @@ __device__ __forceinline__ uint32_t x_word(const uint32_t* f_row,
 }
 
 // One edge slot of a warp, in one row: edge e (object o, live when the
-// row's frontier words below S are not all zero) ORs T'[f[o] &
-// Bp[pred[e]]] into nxt[subj[e]], masked by ~(v | f) there.  f, v, nxt,
-// Bp and bwd point at the row's own arrays.  Every lane of the warp calls
+// row's frontier words below S are not all zero) ORs T'[g[o] &
+// Bp[pred[e]]] into nxt[subj[e]], masked by ~(v | f) there.  g, f, v,
+// nxt, Bp and bwd point at the row's own arrays.  Every lane of the warp calls
 // it together.  Sets `hit` when it ORs a non-zero word in.
 __device__ __forceinline__ void edge_slot(
-    int64_t e, int o, bool live, const uint32_t* __restrict__ f,
-    const uint32_t* v, uint32_t* __restrict__ nxt,
+    int64_t e, int o, bool live, const uint32_t* __restrict__ g,
+    const uint32_t* __restrict__ f, const uint32_t* v, uint32_t* __restrict__ nxt,
     const uint32_t* __restrict__ Bp, const uint32_t* __restrict__ bwd,
     const int32_t* __restrict__ subj, const int32_t* __restrict__ pred,
     int V, int L, int S, int W, int in_words, int lane, bool& hit) {
-  const uint32_t* f_row = f + static_cast<int64_t>(live ? o : 0) * W;
+  const uint32_t* f_row = g + static_cast<int64_t>(live ? o : 0) * W;
   const uint32_t* b_row = Bp;
   if (live) {
     const int p = pred[e];
@@ -165,7 +170,8 @@ __device__ __forceinline__ void edge_slot(
 // and so the occupancy, it had before the row loop.
 template <bool kOneRow>
 __global__ void __launch_bounds__(kThreads)
-packed_superstep_kernel(const uint32_t* __restrict__ f, uint32_t* v,
+packed_superstep_kernel(const uint32_t* __restrict__ g,
+                        const uint32_t* __restrict__ f, uint32_t* v,
                         uint32_t* __restrict__ nxt,
                         uint32_t* __restrict__ spare, int32_t* flag,
                         int stamp, const uint32_t* __restrict__ Bp,
@@ -173,12 +179,13 @@ packed_superstep_kernel(const uint32_t* __restrict__ f, uint32_t* v,
                         const int32_t* __restrict__ subj,
                         const int32_t* __restrict__ pred,
                         const int32_t* __restrict__ obj, int64_t E, int R,
-                        int V, int L, int S, int W) {
+                        int V, int Vg, int L, int S, int W) {
   // the superstep before found nothing: every frontier is empty
   if (*flag < stamp - 1) return;
   const int lane = threadIdx.x & 31;
   const int in_words = (S + 31) >> 5;
   const int64_t row_words = static_cast<int64_t>(V) * W;
+  const int64_t g_words = static_cast<int64_t>(Vg) * W;
   bool hit = false;  // this thread ORed a non-zero word into nxt
 
   // edges: the loop test is the warp's first lane's, so a warp stays whole
@@ -189,17 +196,18 @@ packed_superstep_kernel(const uint32_t* __restrict__ f, uint32_t* v,
     int o = -1;
     if (e < E) {
       o = obj[e];
-      if (o < 0 || o >= V) o = -1;
+      if (o < 0 || o >= Vg) o = -1;
     }
     if (!__any_sync(kFull, o >= 0)) continue;
     for (int r = 0; r < (kOneRow ? 1 : R); ++r) {
       const int64_t at = r * row_words;
+      const int64_t at_g = r * g_words;
       bool live = false;
       if (o >= 0)
         for (int w = 0; w < in_words && !live; ++w)
-          live = f[at + static_cast<int64_t>(o) * W + w] != 0u;
+          live = g[at_g + static_cast<int64_t>(o) * W + w] != 0u;
       if (!__any_sync(kFull, live)) continue;
-      edge_slot(e, o, live, f + at, v + at, nxt + at,
+      edge_slot(e, o, live, g + at_g, f + at, v + at, nxt + at,
                 Bp + static_cast<int64_t>(r) * L * W,
                 bwd + static_cast<int64_t>(r) * S * W, subj, pred, V, L, S,
                 W, in_words, lane, hit);
@@ -221,15 +229,17 @@ packed_superstep_kernel(const uint32_t* __restrict__ f, uint32_t* v,
 extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
-// All pointers are device pointers to contiguous data: f, v, nxt, spare
+// All pointers are device pointers to contiguous data: g [R, Vg, W]
+// uint32 (f itself, or a buffer no launch writes), f, v, nxt, spare
 // [R, V, W] uint32 (nxt zero on entry, four distinct buffers), flag one
 // int32, Bp [R, L, W] and bwd [R, S, W] uint32, subj, pred, obj [E]
 // int32.
-int packed_superstep_launch(const void* f, void* v, void* nxt, void* spare,
+int packed_superstep_launch(const void* g, const void* f, void* v,
+                            void* nxt, void* spare,
                             void* flag, int stamp, const void* Bp,
                             const void* bwd, const void* subj,
                             const void* pred, const void* obj, long long E,
-                            int R, int V, int L, int S, int W,
+                            int R, int V, int Vg, int L, int S, int W,
                             void* stream) {
   const int64_t words = static_cast<int64_t>(R) * V * W;
   const int64_t work = E > words ? E : words;
@@ -250,12 +260,13 @@ int packed_superstep_launch(const void* f, void* v, void* nxt, void* spare,
                                                                    : 1);
   const int blocks = static_cast<int>(needed < resident ? needed : resident);
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(f), static_cast<uint32_t*>(v),
+      static_cast<const uint32_t*>(g), static_cast<const uint32_t*>(f),
+      static_cast<uint32_t*>(v),
       static_cast<uint32_t*>(nxt), static_cast<uint32_t*>(spare),
       static_cast<int32_t*>(flag), stamp,
       static_cast<const uint32_t*>(Bp), static_cast<const uint32_t*>(bwd),
       static_cast<const int32_t*>(subj), static_cast<const int32_t*>(pred),
-      static_cast<const int32_t*>(obj), E, R, V, L, S, W);
+      static_cast<const int32_t*>(obj), E, R, V, Vg, L, S, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -102,21 +102,24 @@ def packed_superstep_ref(f: torch.Tensor, v: torch.Tensor, nxt: torch.Tensor,
                          spare: torch.Tensor, flag: torch.Tensor, stamp: int,
                          Bp: torch.Tensor, bwd: torch.Tensor,
                          subj: torch.Tensor, pred: torch.Tensor,
-                         obj: torch.Tensor) -> None:
+                         obj: torch.Tensor,
+                         gathered: torch.Tensor = None) -> None:
     """One packed BFS superstep of R rows, in place (see
     ``kernels/packed_superstep.py``): per row the gathers, the transition
     of :func:`nfa_step_ref` with the row's own table, :func:`segment_or_ref`
     (over ids ``r * V + subj``, one segment per row and node) and the
     and-not.  f, v, nxt, spare: [R, V, W] int32 words, nxt zero on entry;
     flag: [1] int32; Bp [R, L, W], bwd [R, S, W] int32 words; subj, pred,
-    obj: [E] int32 ids in range.  Nothing changes while ``flag[0] < stamp
-    - 1``."""
+    obj: [E] int32 ids in range; ``gathered`` [R, Vg, W], the frontier
+    ``obj`` indexes (``f`` when ``None``).  Nothing changes while
+    ``flag[0] < stamp - 1``."""
     if int(flag[0]) < stamp - 1:
         return
     R, V, W = f.shape
     S = bwd.shape[1]
+    g = f if gathered is None else gathered
     rows = torch.arange(R, device=f.device)[:, None]
-    X = f[:, obj] & Bp[rows, pred[None, :]]               # [R, E, W]
+    X = g[:, obj] & Bp[rows, pred[None, :]]               # [R, E, W]
     r_idx, e_idx = (X != 0).any(dim=2).nonzero(as_tuple=True)
     x = widen(X[r_idx, e_idx])                             # live (row, edge)
     b = widen(bwd)

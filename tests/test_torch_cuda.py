@@ -519,3 +519,173 @@ def test_dense_engine_on_card_matches_host(cuda_device):
     counts = tk.launch_counts()
     assert counts["packed_superstep"] > 0
     assert counts["nfa_step"] == counts["segment_or"] == 0
+
+
+def _mesh_superstep(dev, R, S, L, live, seed):
+    """One superstep of every shard of a 3-shard mesh on ``dev`` (each
+    shard's buffers its own, the all-gather a copy into one [R, V_pad, W]
+    buffer), over hub-law edges with inert-label padding; returns every
+    shard's (f, v, nxt, spare) words and the shared flag."""
+    from types import SimpleNamespace
+    from repro_torch.core.distributed import (Mesh, ShardedDenseExec,
+                                              _Replica, shard_superstep)
+    rng = np.random.default_rng(seed)
+    V, E = 2000, 30_001
+    W = (S + 31) // 32
+    _f, _v, _s, _B, _b, subj, pred, obj = _superstep_arrays(
+        rng, V, E, S, L, live, ordered=True)
+    ex = ShardedDenseExec(SimpleNamespace(
+        subj=subj, pred=pred, obj=obj, num_nodes=V, num_labels=L),
+        Mesh([dev] * 3, ("data",)))
+    Vl, Vp = ex.sg.nodes_per_shard, ex.sg.num_nodes_padded
+    start = rng.integers(0, 2**32, (R, Vp, W), dtype=np.uint32)
+    start[rng.random((R, Vp)) >= live] = 0
+    start[:, V:] = 0
+    vis = rng.integers(0, 2**32, (R, Vp, W), dtype=np.uint32)
+    vis[rng.random((R, Vp, W)) < 0.8] = 0
+    Bp = rng.integers(0, 2**32, (R, L + 1, W), dtype=np.uint32)
+    Bp[:, L] = 0
+    bwd = rng.integers(0, 2**32, (R, S, W), dtype=np.uint32)
+    d = torch.device(dev)
+    reps = [_Replica(k, 0, d, _on(d, start[:, k * Vl:(k + 1) * Vl]),
+                     ex._edges[k][0]) for k in range(3)]
+    for r in reps:      # own copies: a host tensor may share numpy's memory
+        r.v = _on(d, vis[:, r.k * Vl:(r.k + 1) * Vl]).clone()
+        r.bufs[2] = r.v.clone()                             # a stale spare
+    flags = {d: torch.zeros(1, dtype=torch.int32, device=d)}
+    gathered = {d: torch.zeros((R, Vp, W), dtype=torch.int32, device=d)}
+    shard_superstep(reps, gathered, flags, {d: (_on(d, Bp), _on(d, bwd))},
+                    0, Vl)
+    return [a.cpu().numpy() for r in reps for a in (r.bufs + [r.v])] + \
+        [flags[d].cpu().numpy()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S,live", [(1, 5, 0.3), (16, 20, 0.05),
+                                      (16, 40, 0.5)])
+def test_sharded_packed_superstep_cuda_matches_plain(cuda_device, R, S,
+                                                     live):
+    """``packed_superstep`` over a gathered frontier: three shards on one
+    card, bit for bit with the plain version on the host, one launch a
+    shard."""
+    tk.reset_launch_counts()
+    got = _mesh_superstep(cuda_device, R, S, 8, live, R + S)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["packed_superstep"] == 3
+    want = _mesh_superstep("cpu", R, S, 8, live, R + S)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert int(got[-1][0]) == 1
+    assert not any(a.any() for a in got[2:12:4])        # spares cleared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ring", "dense"])
+def test_sharded_engines_on_card_match_host(cuda_device, kind):
+    """Both engines on a mesh of 3 x the card (the dense one also on a
+    2 x 2 data x model mesh) against the unsharded host run: eval_many
+    over mixed automata, eval, live updates with compact()."""
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.core.engines import make_engine
+    g = fixtures.scale_free_graph(3_000, 6, 12_000, seed=4)
+    kw = {"kernel_threshold": 1} if kind == "ring" else {}
+    meshes = [{"mesh": Mesh([cuda_device] * 3, ("data",))}]
+    if kind == "dense":
+        meshes.append({"mesh": Mesh([[cuda_device] * 2] * 2,
+                                    ("data", "model")), "model_axis": "model"})
+    exprs = ["0/1*", "(0|2)+/^1", "^0/(1|3)*/2", "0+"]
+    queries = [Query(e, obj=o) for e in exprs for o in (0, 7, 99)] + \
+        [Query(e, subject=s) for e in exprs for s in (3, 50)]
+    host = make_engine(g, kind=kind, device="cpu")
+    want = host.eval_many(queries)
+    tk.reset_launch_counts()
+    for knobs in meshes:
+        card = make_engine(g, kind=kind, device=cuda_device, **knobs, **kw)
+        assert card.eval_many(queries) == want
+        for e in exprs[:2]:
+            assert card.eval(e, None, 5) == host.eval(e, None, 5)
+        for eng in (card, host):
+            eng.add_edges([(1, 0, 2), (2, 1, 3), (40, 2, 0)])
+            eng.results.clear()
+        assert card.eval_many(queries) == host.eval_many(queries)
+        card.compact()
+        card.results.clear()
+        assert card.eval_many(queries) == host.eval_many(queries)
+        host.remove_edges([(1, 0, 2), (2, 1, 3), (40, 2, 0)])
+        host.results.clear()
+    counts = tk.launch_counts()
+    if kind == "dense":
+        assert card.sharded.dispatches > 0
+        assert counts["packed_superstep"] > 0 and counts["nfa_step"] == 0
+    else:
+        assert card.sharded_kernel_batches > 0
+        assert counts["nfa_step"] >= 3 * card.sharded_kernel_batches
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_on_card(cuda_device, tmp_path):
+    """Tensors on the card save and restore onto the card; a dense
+    engine on a 3-shard card mesh loads the restored stats and overlay
+    and answers as the source."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.core.engines import make_engine
+    from repro_torch.core.stats import GraphStats
+    state = {"a": torch.arange(10, device=cuda_device),
+             "b": [torch.ones(3, 4, dtype=torch.bfloat16,
+                              device=cuda_device)]}
+    ckpt.save(str(tmp_path / "t"), 1, state)
+    got, _ = ckpt.restore(str(tmp_path / "t"), state, device="cuda",
+                          verify=True)
+    assert got["a"].is_cuda and torch.equal(got["a"], state["a"])
+    assert torch.equal(got["b"][0], state["b"][0])
+    g = fixtures.scale_free_graph(3_000, 6, 12_000, seed=4)
+    src = make_engine(g, kind="dense", device=cuda_device)
+    src.add_edges([(1, 0, 2), (2, 1, 3)])
+    eng_state = {"overlay": src.overlay_state(),
+                 "stats": src.graph_stats.to_state()}
+    ckpt.save(str(tmp_path / "e"), 1, eng_state)
+    got, _ = ckpt.restore(str(tmp_path / "e"), eng_state, device="cuda")
+    eng = make_engine(g, kind="dense", device=cuda_device,
+                      mesh=Mesh([cuda_device] * 3, ("data",)),
+                      stats=GraphStats.from_state(got["stats"]))
+    eng.load_overlay(got["overlay"])
+    for e in ("0/1*", "(0|2)+/^1"):
+        assert eng.eval(e, None, 7) == src.eval(e, None, 7)
+
+
+@pytest.mark.cuda
+def test_sharded_engines_across_cards_match_host(cuda_device):
+    """Both engines with one shard a card (``shards=`` every visible
+    card), and the dense engine on a 2 x 2 data x model mesh of four
+    cards, against the unsharded host run: the all-gather crosses cards
+    and the kernel's flags of several devices take their maximum."""
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.core.engines import make_engine
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    g = fixtures.scale_free_graph(3_000, 6, 12_000, seed=4)
+    exprs = ["0/1*", "(0|2)+/^1", "^0/(1|3)*/2", "0+"]
+    queries = [Query(e, obj=o) for e in exprs for o in (0, 7, 99)] + \
+        [Query(e, subject=s) for e in exprs for s in (3, 50)]
+    cards = [torch.device("cuda", i) for i in range(n)]
+    for kind, knobs in [("ring", {"shards": n, "kernel_threshold": 1}),
+                        ("dense", {"shards": n})] + \
+            ([("dense", {"mesh": Mesh([cards[:2], cards[2:4]],
+                                      ("data", "model")),
+                         "model_axis": "model"})] if n >= 4 else []):
+        host = make_engine(g, kind=kind, device="cpu")
+        card = make_engine(g, kind=kind, device=cuda_device, **knobs)
+        assert card.eval_many(queries) == host.eval_many(queries), knobs
+        for eng in (card, host):
+            eng.add_edges([(1, 0, 2), (2, 1, 3), (40, 2, 0)])
+            eng.results.clear()
+        assert card.eval_many(queries) == host.eval_many(queries), knobs
+        if kind == "dense":
+            assert {str(d) for row in card.sharded.shard_devices
+                    for d in row} == {str(d) for d in
+                                      (cards[:4] if "mesh" in knobs
+                                       else cards)}
+        else:
+            assert card.sharded_kernel_batches > 0

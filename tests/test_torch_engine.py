@@ -139,17 +139,20 @@ def test_explain_analyze_matches_reference():
 
 
 def test_unported_paths_raise():
-    """Sharding raises on both engines; the dense engine and a scheduler
-    over it work (their parity is ``tests/test_torch_dense*.py``), and
-    without a card the default device raises."""
+    """``shards=N`` past the visible devices raises on both engines (the
+    host is one device; a mesh naming it N times is
+    ``tests/test_torch_distributed.py``); the dense engine and a
+    scheduler over it work (their parity is
+    ``tests/test_torch_dense*.py``), and without a card the default
+    device raises."""
     from repro_torch.core.dense import DenseRPQ
     g = pfix.random_graph(10, 2, 20, seed=1)
     dense = make_engine(g, kind="dense", device="cpu")
     assert isinstance(dense, DenseRPQ)
     assert dense.eval("0/1*", None, 3) == port_oracle(g, "0/1*", None, 3)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="devices are visible"):
         make_engine(g, device="cpu", shards=2)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="devices are visible"):
         make_engine(g, kind="dense", device="cpu", shards=2)
     sched = PSched(dense)
     assert type(sched.slots).__name__ == "_DenseSlots"

@@ -44,6 +44,29 @@ def test_port_imports_leave_no_jax_or_reference_modules():
     assert [m for m in mods if _forbidden(m)] == []
 
 
+def test_checkpoint_loads_no_msgpack_or_zstandard(tmp_path):
+    """In a fresh interpreter, importing ``repro_torch.checkpoint`` and a
+    zlib save and restore load neither ``msgpack`` nor ``zstandard`` (the
+    GPU machine has neither); reading a zstd checkpoint is what loads
+    ``zstandard``."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        "from repro_torch import checkpoint as ck\n"
+        "state = {'x': np.arange(4)}\n"
+        f"ck.save({str(tmp_path)!r}, 1, state)\n"
+        f"ck.restore({str(tmp_path)!r}, state, device='cpu', verify=True)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.checkpoint" in mods
+    assert [m for m in mods if m.split(".")[0] in ("msgpack", "zstandard")] \
+        == []
+
+
 def test_port_sources_name_no_jax_or_reference_imports():
     """Static check, which also covers imports inside functions."""
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
