@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or with ``--parent DIR``, a checkout of the parent commit, to load that
+tree's own ``ops.packed_superstep`` too and time it in turns with this
+tree's at every superstep timing point (``parent_ms``, ``turns_ms``).
+
 Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
 
   0. device + build: the card, and the seconds ``nvcc`` took to build
@@ -16,7 +20,9 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      (a thread or a warp per row), and ``packed_superstep`` at the full
      size with 1% and 100% of the frontier rows live, beside the
      unfused superstep it replaced (``unfused_ms``), and with R = 16 BFS
-     rows (the dense engine's batch);
+     rows (the dense engine's batch), each held to the plain version on
+     the epoch's raw edge arrays, with its bound over the grouped inputs
+     beside the edge pass's bound and the bytes its design moves;
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
@@ -57,7 +63,9 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      mixed batch again on the host with the plain version (equal answers
      and supersteps); ANALYZE of one hub closure; a profiled rerun
      (idle share, ``cudaLaunchKernel`` and flag reads a superstep); a
-     ``SlotScheduler`` over the engine as phase 3.  The path must launch
+     rerun that records the heaviest R = 16 launch; a ``SlotScheduler``
+     over the engine as phase 3, and the seconds its live update's edge
+     epoch takes to group by object on the card.  The path must launch
      ``packed_superstep`` and neither ``nfa_step`` nor ``segment_or``;
   8. mesh: both engines sharded over a mesh of 4 x the card on phase 2's
      graph (its ``Ring`` and phase 7's statistics reused): the ring on
@@ -75,7 +83,8 @@ prints them just after.
 Then the ``kernels`` line (each kernel's launches on its path and its
 times at its path's largest launch, the heaviest superstep for
 ``packed_superstep`` and ``segment_or``; for ``nfa_step`` and
-``packed_superstep`` also a shard's launch on the mesh)
+``packed_superstep`` also a shard's launch on the mesh, and for
+``packed_superstep`` the dense path's heaviest R = 16 launch)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -161,17 +170,22 @@ def fail(msg: str) -> None:
     raise AssertionError(msg)
 
 
-def time_ms(fn, runs: int = 20) -> float:
+def time_ms(fn, runs: int = 20, setup=None) -> float:
     """Median device time of ``fn`` over ``runs`` runs, CUDA events.  A
     sleep kernel queued first keeps the card busy while the host
-    enqueues the events and the work, so host latency stays out."""
+    enqueues the events and the work, so host latency stays out.
+    ``setup``, if given, runs before each run, outside the events."""
     import torch
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if setup is not None:
+            setup()
         torch.cuda._sleep(1_000_000)
         start.record()
         fn()
@@ -223,15 +237,16 @@ def segment_or_bound(vals, num_segments: int):
                  int(nonzero.sum()), INT32_OPS_PER_S)
 
 
-def superstep_bound(f, v, Bp, bwd, subj, pred, obj, gathered=None):
-    """What one packed_superstep of R rows ([R, V, W] state, [R, L, W]
-    and [R, S, W] tables) must move, from these inputs: every edge's obj
-    once and every frontier word (4*E + 4*R*V*W); the pred of each edge
-    whose frontier word below S is non-zero in some row and the subj of
-    each edge whose transition is non-zero in some row (4 each); at each
-    word a row's transition reaches, v read (4) and, where the mask
-    leaves bits, nxt written (4); at each non-zero frontier word v read
-    and written (8); spare written (4*R*V*W); the tables once.
+def edge_pass_bound(f, v, Bp, bwd, subj, pred, obj, gathered=None):
+    """What one edge pass (the kernel before the grouped layout: a thread
+    an edge) of R rows ([R, V, W] state, [R, L, W] and [R, S, W] tables)
+    must move, from these inputs: every edge's obj once and every
+    frontier word (4*E + 4*R*V*W); the pred of each edge whose frontier
+    word below S is non-zero in some row and the subj of each edge whose
+    transition is non-zero in some row (4 each); at each word a row's
+    transition reaches, v read (4) and, where the mask leaves bits, nxt
+    written (4); at each non-zero frontier word v read and written (8);
+    spare written (4*R*V*W); the tables once.
     Operations: W ORs per set bit of X below S, over the rows.  A
     shard's superstep (``gathered`` [R, V_pad, W], the frontier gathered
     over the mesh; the state and ``subj`` local) also reads the gathered
@@ -306,6 +321,91 @@ def rank1_bound(words, directory, i):
                  int((hi - lo).clamp(min=0).sum()), POPC_PER_S)
 
 
+# -- the parent's kernel ------------------------------------------------------
+# the parent tree's packed_superstep, when ``--parent DIR`` names one
+PARENT = None
+
+
+class ParentSuperstep:
+    """The parent tree's own ``ops.packed_superstep``, loaded from
+    ``DIR/src/repro_torch`` as the package ``parent_repro_torch`` (its
+    kernel built into that tree's ``kernels/_build/``), for timing in
+    turns with this tree's kernel on the same card and inputs.  It takes
+    the edge inputs its signature names: the epoch's ``(subj, pred,
+    obj)`` arrays, or a ``layout`` and ``scratch`` that its own
+    ``group_by_object`` and ``new_scratch`` build from them."""
+
+    NAME = "parent_repro_torch"
+
+    def __init__(self, root: str):
+        import importlib
+        import importlib.util
+        import inspect
+        self.src = os.path.join(root, "src", "repro_torch")
+        spec = importlib.util.spec_from_file_location(
+            self.NAME, os.path.join(self.src, "__init__.py"),
+            submodule_search_locations=[self.src])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[self.NAME] = package
+        spec.loader.exec_module(package)
+        self.ops = importlib.import_module(self.NAME + ".kernels.ops")
+        self.sup = importlib.import_module(
+            self.NAME + ".kernels.packed_superstep")
+        params = inspect.signature(self.ops.packed_superstep).parameters
+        self.raw = "obj" in params
+        if not self.raw and "layout" not in params:
+            fail(f"{self.src}: ops.packed_superstep takes neither edge "
+                 f"arrays nor a layout")
+        self.seconds = 0.0
+
+    def build(self) -> None:
+        from importlib import import_module
+        t0 = time.perf_counter()
+        import_module(self.NAME + ".kernels._build").build(
+            ["packed_superstep"])
+        self.seconds = time.perf_counter() - t0
+
+    def bind(self, args, gathered):
+        """(run(state), reset()) for the parent's pass on a superstep case
+        ``args``: ``reset`` zeroes its worklist counters, if it has any."""
+        f, stamp, Bp, bwd, edges = args[0], args[5], args[6], args[7], \
+            args[8]
+        tail, reset = (edges.subj, edges.pred, edges.obj), (lambda: None)
+        if not self.raw:
+            g = f if gathered is None else gathered
+            # the inert label: a last table row that is zero in every row
+            inert = Bp.shape[1] - (0 if bool(Bp[:, -1].any()) else 1)
+            layout = self.sup.group_by_object(*tail, g.shape[1], inert)
+            scratch = self.sup.new_scratch(layout, f.shape[0])
+            tail, reset = (layout, scratch), scratch.counters.zero_
+
+        def run(state):
+            self.ops.packed_superstep(*state, stamp, Bp, bwd, *tail,
+                                      gathered=gathered)
+        return run, reset
+
+    def turns(self, args, gathered, want, kernel, fresh) -> dict:
+        """The parent's pass on ``args``, held to ``want``, then timed in
+        turns with ``kernel``: parent, kernel, kernel, parent, nxt (and
+        each pass's worklist counters) zeroed before each run."""
+        import torch
+        run, reset = self.bind(args, gathered)
+        once = [t.clone() for t in args[:5]]
+        run(once)
+        equal = all(torch.equal(a, b) for a, b in zip(once, want))
+        copy = [t.clone() for t in args[:5]]
+
+        def parent_fresh():
+            copy[2].zero_()
+            reset()
+
+        t = [time_ms(lambda: run(copy), setup=parent_fresh),
+             time_ms(kernel, setup=fresh), time_ms(kernel, setup=fresh),
+             time_ms(lambda: run(copy), setup=parent_fresh)]
+        return {"parent_ms": (t[0] + t[3]) / 2, "turns_ms": t,
+                "parent_equal": equal}
+
+
 # -- phase 0 -----------------------------------------------------------------
 def phase_device():
     import torch
@@ -320,7 +420,11 @@ def phase_device():
     _build.build()
     for name in _build.SOURCES:
         _build.library(name)
+    if PARENT is not None:
+        PARENT.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "parent": None if PARENT is None else
+          {"source": PARENT.src, "seconds": PARENT.seconds},
           "kernels": {n: {"seconds": v["seconds"],
                           "ptxas": [ln for ln in v["ptxas"].splitlines()
                                     if "Used" in ln or "spill" in ln]}
@@ -361,28 +465,113 @@ def check_and_time(errs: dict, name: str, kernel, plain, args,
             "plain_ms": time_ms(lambda: plain(*args))}
 
 
-def superstep_check_and_time(errs: dict, args, where,
-                             gathered=None) -> dict:
-    """``packed_superstep`` against its plain version, bit for bit, each
-    on its own copy of the state (it works in place): visited, nxt,
-    spare and the flag after.  Then both timed in place on a further
-    copy: a repeat on the state a superstep leaves does the same work
-    (v already holds f, the same words are ORed into nxt again).  Beside
-    them, for one unsharded row, the unfused composition the pass
-    replaced (``unfused_ms``).  ``gathered``: a shard's superstep, over
-    the frontier gathered over the mesh."""
+def superstep_bounds(args, gathered=None) -> dict:
+    """The bounds of one superstep on a case ``(f, v, nxt, spare, flag,
+    stamp, Bp, bwd, edges)``, ``edges`` an ``Edges`` epoch, from this
+    run's data.  ``bound_ms``: what the function must move over its
+    grouped inputs: the frontier it indexes read once (4*R*Vg*W; on a
+    mesh also the shard's own f, 4*R*V*W, that v |= f reads), spare
+    written (4*R*V*W), v read and written at each non-zero word of f
+    (8), once each offset of an object live in some row (4), the pred of
+    each edge of such an object (4), the subj of each edge whose
+    transition is non-zero in some row (4), at each word a row's
+    transition reaches v read (4) and, where the mask leaves bits, nxt
+    written (4), and the tables once; no worklist.  Operations: W ORs
+    per set bit of X below S, over the rows.  ``edge_pass_bound_ms``:
+    :func:`edge_pass_bound` on the epoch's raw arrays, the yardstick of
+    the edge pass this design replaced.  ``design_bytes_ms``: what the frontier scan and the tile
+    expansion move on the same data: the state terms above, and per row
+    two offsets a live (row, object) pair, 16 bytes a worklist entry
+    (written, then read), the pred of each edge of a live object, the
+    subj where its transition is non-zero, and v and nxt read at each
+    word a transition reaches (nxt written where the mask leaves
+    bits)."""
     import torch
     from repro_torch.kernels import packed_superstep as ksup
-    from repro_torch.kernels import ref
-    state, stamp, tables = args[:5], args[5], args[6:]
+    from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref
+    f, v, Bp, bwd, edges = args[0], args[1], args[6], args[7], args[8]
+    lay = edges.grouped
+    g = f if gathered is None else gathered
+    (R, V, W), Vg, S, L = f.shape, g.shape[1], bwd.shape[1], Bp.shape[1]
+    deg = (lay.offsets[1:] - lay.offsets[:-1]).to(torch.int64)
+    tiles = (deg + ksup.TILE - 1) // ksup.TILE
+    objs = lay.objects().to(torch.int64)
+    any_live = torch.zeros(Vg, dtype=torch.bool, device=f.device)
+    edge_live = torch.zeros(objs.shape[0], dtype=torch.bool,
+                            device=f.device)
+    edge_y = torch.zeros_like(edge_live)
+    pairs = entries = row_edges = row_y = targets = written = set_bits = 0
+    for r in range(R):
+        live = (g[r][:, :(S + 31) // 32] != 0).any(1) & (deg > 0)
+        any_live |= live
+        pairs += int(live.sum())
+        entries += int(tiles[live].sum())
+        on = live[objs].nonzero().squeeze(1)
+        edge_live[on] = True
+        X = g[r].index_select(0, objs[on]) & \
+            Bp[r].index_select(0, lay.pred[on].clamp(0, L - 1))
+        Y = nfa_step_ref(X, bwd[r])
+        y = (Y != 0).any(1)
+        edge_y[on[y]] = True
+        row_edges += int(on.numel())
+        row_y += int(y.sum())
+        reach = segment_or_ref(Y, lay.subj[on], V)
+        targets += int((reach != 0).sum())
+        written += int(((reach & ~(v[r] | f[r])) != 0).sum())
+        set_bits += int(_set_bits_below(X, S))
+    offsets = torch.zeros(Vg + 1, dtype=torch.bool, device=f.device)
+    offsets[:-1] |= any_live
+    offsets[1:] |= any_live
+    state = (4 * g.numel() + (0 if gathered is None else 4 * f.numel())
+             + 4 * R * V * W + 8 * int((f != 0).sum()) + 4 * R * (L + S) * W)
+    need = state + 4 * (int(offsets.sum()) + int(edge_live.sum())
+                        + int(edge_y.sum()) + targets + written)
+    design = state + 8 * pairs + 16 * entries + 4 * (row_edges + row_y) \
+        + 8 * targets + 4 * written
+    b_ms, b_by = bound(need, set_bits * W, INT32_OPS_PER_S)
+    edge_ms, edge_by = edge_pass_bound(f, v, Bp, bwd, edges.subj,
+                                       edges.pred, edges.obj,
+                                       gathered=gathered)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "edge_pass_bound_ms": edge_ms, "edge_pass_bound_by": edge_by,
+            "design_bytes_ms": design / HBM_BYTES_PER_S * 1e3,
+            "live_pairs": pairs, "worklist_entries": entries,
+            "live_edges": row_edges}
 
-    def run(step):
+
+def superstep_check_and_time(errs: dict, args, where,
+                             gathered=None) -> dict:
+    """``packed_superstep`` against its plain version on the epoch's raw
+    edge arrays (``ref.packed_superstep_ref`` over ``edges.subj``,
+    ``.pred`` and ``.obj``, so the grouped layout the card built is held
+    to the edges it came from), bit for bit, each on its own copy of the
+    state (it works in place): visited, nxt, spare and the flag after.
+    Then both timed on a further copy, nxt and the worklist counters
+    zeroed before each run (outside the timed events), so each run does
+    the superstep's whole work again.  With a parent tree (``--parent``),
+    the parent's pass on the same inputs is checked against the same
+    result and timed in turns with the kernel: parent, kernel, kernel,
+    parent.  Beside them, for one unsharded row, the unfused composition
+    the pass replaced (``unfused_ms``), and the bounds
+    (:func:`superstep_bounds`).  ``args``: ``(f, v, nxt, spare, flag,
+    stamp, Bp, bwd, edges)``, ``edges`` an ``Edges`` epoch; ``gathered``:
+    a shard's superstep, over the frontier gathered over the mesh."""
+    import torch
+    from repro_torch.kernels import packed_superstep as ksup
+    from repro_torch.kernels.ref import packed_superstep_ref
+    state, stamp, Bp, bwd, edges = args[:5], args[5], args[6], args[7], \
+        args[8]
+    layout = edges.grouped
+    scratch = ksup.new_scratch(layout, state[0].shape[0])
+    raw = (edges.subj, edges.pred, edges.obj)
+
+    def run(step, *tail):
         copy = [t.clone() for t in state]
-        step(*copy, stamp, *tables, gathered=gathered)
+        step(*copy, stamp, Bp, bwd, *tail, gathered=gathered)
         return copy
 
-    got = run(ksup.packed_superstep_cuda)
-    want = run(ref.packed_superstep_ref)
+    got = run(ksup.packed_superstep_cuda, layout, scratch)
+    want = run(packed_superstep_ref, *raw)
     err = max_abs_err(*(torch.cat([t.reshape(-1) for t in c])
                         for c in (got, want)))
     errs.setdefault("packed_superstep", []).append(err)
@@ -390,12 +579,22 @@ def superstep_check_and_time(errs: dict, args, where,
         fail(f"packed_superstep differs from its plain version at {where}")
     copy = [t.clone() for t in state]
 
-    def kernel():
-        ksup.packed_superstep_cuda(*copy, stamp, *tables, gathered=gathered)
+    def fresh():
+        copy[2].zero_()
+        scratch.counters.zero_()
 
-    out = {"max_abs_err": err, "ms": time_ms(kernel),
-           "plain_ms": time_ms(lambda: ref.packed_superstep_ref(
-               *copy, stamp, *tables, gathered=gathered))}
+    def kernel():
+        ksup.packed_superstep_cuda(*copy, stamp, Bp, bwd, layout, scratch,
+                                   gathered=gathered)
+
+    out = {"max_abs_err": err, "ms": time_ms(kernel, setup=fresh),
+           "plain_ms": time_ms(lambda: packed_superstep_ref(
+               *copy, stamp, Bp, bwd, *raw, gathered=gathered),
+               setup=fresh),
+           "grouped_edges": int(layout.subj.numel()),
+           **superstep_bounds(args, gathered)}
+    if PARENT is not None:
+        out.update(PARENT.turns(args, gathered, want, kernel, fresh))
     if state[0].shape[0] == 1 and gathered is None:
         out["unfused_ms"] = unfused_ms(args, want[2][0], where)
     return out
@@ -413,7 +612,7 @@ def unfused_ms(args, want_next, where) -> float:
     from repro_torch.kernels import segment_or as kseg
     f, v = args[0][0], args[1][0]
     Bp, bwd = args[6][0], args[7][0]
-    subj, pred, obj = args[8:]
+    subj, pred, obj = args[8].subj, args[8].pred, args[8].obj
     visited = v | f                  # the unfused loop's visited holds f
 
     def step():
@@ -458,7 +657,7 @@ def gather_ms(args) -> float:
     reads (``f[r][obj]`` for every row r) on a superstep's arguments: a
     yardstick for the part of the edge pass no design that reads every
     edge's frontier word avoids."""
-    f, obj = args[0], args[10]
+    f, obj = args[0], args[8].obj
     return time_ms(lambda: f.index_select(1, obj))
 
 
@@ -467,10 +666,12 @@ def _superstep_state(rng, S: int, live: float, hubs, objects: str,
     """packed_superstep arguments at the packed path's full size, with
     ``rows`` BFS rows: hub-law subjects (sorted, as ``DenseGraph`` keeps
     them), objects by the same law (``"hub"``) or uniform, uniform
-    labels, frontiers with ``live`` of their rows non-zero, sparse
-    visited sets, random tables (each row its own)."""
+    labels (an ``Edges`` epoch, grouped on the card, no inert label),
+    frontiers with ``live`` of their rows non-zero, sparse visited sets,
+    random tables (each row its own)."""
     import numpy as np
     import torch
+    from repro_torch.core.dense import Edges
     from repro_torch.kernels.ops import words_to_tensor
     W = (S + 31) // 32
 
@@ -492,9 +693,10 @@ def _superstep_state(rng, S: int, live: float, hubs, objects: str,
     return (f, v, nxt, spare, flag, 1,
             words((rows * FULL_L, W), 1.0).reshape(rows, FULL_L, W),
             words((rows * S, W), 1.0).reshape(rows, S, W),
-            ids(hubs), ids(rng.integers(0, FULL_L, FULL_E)),
-            ids(rng.permutation(hubs) if objects == "hub"
-                else rng.integers(0, FULL_V, FULL_E)))
+            Edges.build(ids(hubs), ids(rng.integers(0, FULL_L, FULL_E)),
+                        ids(rng.permutation(hubs) if objects == "hub"
+                            else rng.integers(0, FULL_V, FULL_E)),
+                        FULL_V, FULL_L))
 
 
 def _hub_ids(rng, E: int, V: int):
@@ -562,9 +764,7 @@ def phase_kernels(errs: dict, capture: dict):
                 "objects": objects,
                 **superstep_check_and_time(errs, args,
                                            (R, S, live, objects)),
-                "gather_ms": gather_ms(args),
-                **dict(zip(("bound_ms", "bound_by"),
-                           superstep_bound(*args[:2], *args[6:])))}
+                "gather_ms": gather_ms(args)}
         emit(line)
         if R == ROWS_TIMED and "rows" not in capture:
             capture["rows"] = line
@@ -933,21 +1133,21 @@ class HeaviestLaunch:
         import torch
         from repro_torch.kernels import nfa_step as knfa
         dg = self.dg
-        X = frontier.index_select(0, dg.obj) & Bp.index_select(0, dg.pred)
+        X = frontier.index_select(0, dg.edges.obj) & \
+            Bp.index_select(0, dg.edges.pred)
         Y = knfa.nfa_step_cuda(X, bwd)
         self.largest_E = max(self.largest_E, int(X.shape[0]))
         key = (Y.numel(), int((Y != 0).sum()))
         if key > self.key:
             self.key = key
             self.nfa_step = (X, bwd)
-            self.segment_or = (Y, dg.subj, dg.num_nodes)
+            self.segment_or = (Y, dg.edges.subj, dg.num_nodes)
             f = frontier[None].clone()          # one row
             self.superstep = (f, visited[None].clone(), torch.zeros_like(f),
                               torch.zeros_like(f),
                               torch.zeros(1, dtype=torch.int32,
                                           device=f.device),
-                              1, Bp[None], bwd[None], dg.subj, dg.pred,
-                              dg.obj)
+                              1, Bp[None], bwd[None], dg.edges)
 
 
 def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
@@ -1045,10 +1245,9 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
         "packed_superstep": {
             **superstep_check_and_time(errs, sup, "the heaviest superstep"),
             "gather_ms": gather_ms(sup),
-            "bound": superstep_bound(*sup[:2], *sup[6:]),
             "E": int(X.shape[0]), "V": V, "S": int(bwd.shape[0]),
             "W": int(X.shape[1]),
-            "live_rows": int((sup[0][0].index_select(0, dg.obj) != 0)
+            "live_rows": int((sup[0][0].index_select(0, dg.edges.obj) != 0)
                              .any(1).sum())},
         "nfa_step": {**check_and_time(errs, "nfa_step", knfa.nfa_step_cuda,
                                       ref.nfa_step_ref, (X, bwd),
@@ -1062,7 +1261,8 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     secs = np.array([h[0] for h in hub])
     steps = np.array([h[1] for h in hub])
     return {"phase": "packed_path",
-            "graph": {"nodes": dg.num_nodes, "edges": int(dg.subj.numel()),
+            "graph": {"nodes": dg.num_nodes,
+                      "edges": int(dg.edges.subj.numel()),
                       "labels": dg.num_labels},
             "dense_graph_build_s": build_s,
             "batch": {"requests": len(queries), "equal_to_ring": True,
@@ -1215,7 +1415,7 @@ def _timed_dense_batch(engine, queries, deadline_s):
 
 
 def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
-                adds):
+                adds, capture: dict):
     """The dense engine (``make_engine(kind="dense")``) on the card over
     phase 2's graph, nothing cut: (1) phase 2's requests through
     ``eval_many``, answers equal to the ring's; (2) the hub closures, one
@@ -1224,9 +1424,12 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
     (4) a few requests and hub closures in one batch again on the host
     with the plain version (R > 1): equal answers and supersteps; (6)
     ANALYZE of one hub closure: a timeline row a superstep; (7) a
-    profiled rerun of (1) without a deadline.  The launch counts cover (1) and (2).  Then
-    (5), serving: a ``SlotScheduler`` over the engine, as phase 3, with
-    its own counts.  Every batch runs under a deadline, so the engine
+    profiled rerun of (1) without a deadline; (8) a rerun of (1) with a
+    recorder that keeps the heaviest R = 16 launch, for the kernels
+    line.  The launch counts cover (1) and (2).  Then (5), serving: a
+    ``SlotScheduler`` over the engine, as phase 3, with its own counts,
+    and the seconds the grouped edge layout takes to build after its
+    live update.  Every batch runs under a deadline, so the engine
     counts its supersteps (the JAX package's rule).  (1) runs twice: with
     its plans and planner decisions cold, then warm; the planner's
     statistics are harvested before it and timed apart."""
@@ -1316,6 +1519,9 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                "elapsed_ms": ex["elapsed_ms"]}
 
     profiled = dense_busy(engine, queries, steps)
+    recorded = record_dense_launch(engine, queries, capture)
+    if recorded.pop("answers") != ring_answers:
+        fail("the dense engine's recorded rerun differs from the ring's")
     serving = dense_serving(engine, queries, ring_answers, adds)
 
     secs = np.array(per_request)
@@ -1340,7 +1546,8 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
             "hub_deadline_overrun": {"deadline_s": OVERRUN_DEADLINE_S,
                                      "probes": overrun},
             "host_plain_check": host_check, "analyze": analyze,
-            **profiled, "serving": serving}, engine, stats_s
+            **profiled, "recorded_rerun": recorded,
+            "serving": serving}, engine, stats_s
 
 
 def dense_busy(engine, queries, supersteps: int,
@@ -1408,6 +1615,7 @@ def dense_serving(engine, queries, ring_answers, adds):
     serve_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     check_packed_launches(launches, "dense serving")
+    build = grouped_layout_build(engine)
     engine.results.clear()
     want = {0: ring_answers[:16], engine.epoch: engine.eval_many(reqs)}
     epochs = []
@@ -1420,7 +1628,31 @@ def dense_serving(engine, queries, ring_answers, adds):
             "admitted": sched.admitted,
             "peak_in_flight": sched.peak_in_flight,
             "kernel_launches": {k: launches[k] for k in PACKED_PATH_COUNTS},
-            "serve_s": serve_s}
+            "serve_s": serve_s, "grouped_layout_after_update": build}
+
+
+def grouped_layout_build(engine, runs: int = 3) -> dict:
+    """Seconds to group the engine's effective edges (the epoch its live
+    update built) by object on the card, as the mutation did: the
+    median of ``runs`` builds, each ended by its host read of the tile
+    count."""
+    import torch
+    from repro_torch.core.dense import Edges
+    eff = engine._edges()
+    if eff is engine.dg.edges:
+        fail("dense serving's update left no effective edge epoch")
+    secs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Edges.build(eff.subj, eff.pred, eff.obj, engine.dg.num_nodes,
+                    engine.dg.num_labels)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"seconds_median": statistics.median(secs), "runs": secs,
+            "edges": int(eff.subj.numel()),
+            "grouped_edges": int(eff.grouped.subj.numel()),
+            "tiles": eff.grouped.tiles}
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -1691,39 +1923,56 @@ def phase_mesh(graph, ring, stats, stats_s, queries, ring_answers, skipped,
     return out
 
 
+def _recorder(capture: dict, key: str, epochs, keep):
+    """A stand-in for ``ops.packed_superstep`` that keeps, in
+    ``capture[key]``, a copy of the inputs of the launch with the most
+    non-zero transition inputs ``X = g[obj] & Bp[pred]`` over its rows
+    (the epoch's whole edge arrays: padding and tombstones, inert, give
+    no X) among those ``keep(f, gathered)`` accepts, and runs the launch.
+    ``epochs()`` lists the ``Edges`` epochs a launch's grouped layout may
+    belong to.  Returns (recording function, launches seen)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    original = kops.packed_superstep
+    seen = [0]
+
+    def recording(f, v, nxt, spare, flag, stamp, Bp, bwd, layout, scratch,
+                  gathered=None):
+        seen[0] += 1
+        if keep(f, gathered):
+            edges = next(e for e in epochs() if e.grouped is layout)
+            g = f if gathered is None else gathered
+            live = int(torch.count_nonzero(g.index_select(1, edges.obj) &
+                                           Bp.index_select(1, edges.pred)))
+            if live > capture.get(key + "_live", -1):
+                state = tuple(t.clone() for t in (f, v, nxt, spare, flag))
+                capture[key + "_live"] = live
+                capture[key] = ((*state, stamp, Bp, bwd, edges),
+                                None if gathered is None
+                                else gathered.clone())
+        original(f, v, nxt, spare, flag, stamp, Bp, bwd, layout, scratch,
+                 gathered=gathered)
+
+    return recording, seen
+
+
 def record_shard_launch(engine, queries, hubs, capture: dict) -> dict:
     """Rerun (b)'s requests (one ``eval_many``) and hub closures (one call
-    each) on the sharded dense engine with a recorder on
-    ``ops.packed_superstep``: it keeps a copy of the inputs of the shard
-    launch with the most non-zero transition inputs ``X = g[obj] &
-    Bp[pred]`` over its rows, as phase 5 keeps its heaviest superstep
-    (padding edges, inert-labelled with ``obj = 0``, read node 0's
-    gathered words but give no X), in ``capture["shard_superstep"]``:
-    the launch's arguments and its gathered [R, V_pad, W] buffer, for the
-    kernels line.  Returns the answers, the seconds and the launches
-    recorded."""
+    each) on the sharded dense engine with a recorder (:func:`_recorder`)
+    on ``ops.packed_superstep``: it keeps the shard launch with the most
+    non-zero transition inputs over its rows, as phase 5 keeps its
+    heaviest superstep, in ``capture["shard_superstep"]``: the launch's
+    arguments (its ``Edges``: the shard's padded arrays and their grouped
+    view) and its gathered [R, V_pad, W] buffer, for the kernels line.
+    Returns the answers, the seconds and the launches recorded."""
     import torch
     from repro_torch.kernels import ops as kops
     original = kops.packed_superstep
     edges = engine.sharded._edges
-    seen = [0]
-
-    def recording(f, v, nxt, spare, flag, stamp, Bp, bwd, subj, pred, obj,
-                  gathered=None):
-        seen[0] += 1
-        live = int(torch.count_nonzero(gathered.index_select(1, obj) &
-                                       Bp.index_select(1, pred)))
-        if live > capture.get("shard_live", -1):
-            state = tuple(t.clone() for t in (f, v, nxt, spare, flag))
-            capture.update(
-                shard_live=live, shard_superstep=(
-                    (*state, stamp, Bp, bwd, subj, pred, obj),
-                    gathered.clone()),
-                shard_of=next(k for k, row in enumerate(edges)
-                              for e in row if e[0] is subj))
-        original(f, v, nxt, spare, flag, stamp, Bp, bwd, subj, pred, obj,
-                 gathered=gathered)
-
+    recording, seen = _recorder(
+        capture, "shard_superstep",
+        lambda: [e for row in edges for e in row],
+        lambda f, gathered: gathered is not None)
     engine.results.clear()
     kops.packed_superstep = recording
     try:
@@ -1739,10 +1988,43 @@ def record_shard_launch(engine, queries, hubs, capture: dict) -> dict:
         kops.packed_superstep = original
     if not seen[0]:
         fail("the recorded rerun reached no shard launch")
+    lay = capture["shard_superstep"][0][8]
+    capture["shard_of"] = next(k for k, row in enumerate(edges)
+                               for e in row if e is lay)
     return {"answers": (answers, hub_answers), "seconds": secs,
             "launches_recorded": seen[0],
-            "heaviest_transition_words": capture["shard_live"],
+            "heaviest_transition_words": capture["shard_superstep_live"],
             "heaviest_shard": capture["shard_of"]}
+
+
+def record_dense_launch(engine, queries, capture: dict) -> dict:
+    """Rerun phase 7 (1)'s requests (one ``eval_many``, no deadline) with
+    a recorder (:func:`_recorder`) on ``ops.packed_superstep`` that keeps
+    the real R = 16 launch with the most non-zero transition inputs, in
+    ``capture["dense_superstep"]``, for the kernels line (phase 1's R =
+    16 state is synthetic).  Returns the answers, the seconds and the
+    launches recorded."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    original = kops.packed_superstep
+    recording, seen = _recorder(
+        capture, "dense_superstep",
+        lambda: [e for e in (engine.dg.edges, engine._eff) if e is not None],
+        lambda f, gathered: f.shape[0] == ROWS_TIMED and gathered is None)
+    engine.results.clear()
+    kops.packed_superstep = recording
+    try:
+        t0 = time.perf_counter()
+        answers = engine.eval_many(queries)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        kops.packed_superstep = original
+    if "dense_superstep" not in capture:
+        fail(f"the dense path's rerun made no launch of {ROWS_TIMED} rows")
+    return {"answers": answers, "seconds": secs,
+            "launches_recorded": seen[0],
+            "heaviest_transition_words": capture["dense_superstep_live"]}
 
 
 # -- the kernels line ----------------------------------------------------------
@@ -1777,15 +2059,22 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     largest shard launch, ``packed_superstep`` at phase 8 (b)'s heaviest
     shard launch (R = 16 rows, the shard's local state and edges, the
     gathered frontier; ``record_shard_launch``), each with its launches
-    on the mesh path.  ``library_ms``
-    is null throughout: no single PyTorch call ORs or popcounts packed
+    on the mesh path.  ``dense``: ``packed_superstep`` at phase 7's
+    heaviest real R = 16 launch (``record_dense_launch``).  Each
+    ``packed_superstep`` point has its bound over the grouped inputs, the
+    edge pass's bound and the bytes its design moves beside it
+    (:func:`superstep_bounds`) and, with ``--parent``, the parent's time
+    in the same call (``parent_ms``).  ``library_ms`` is
+    null throughout: no single PyTorch call ORs or popcounts packed
     words."""
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_or as kseg
     X, bwd = capture["X"], capture["bwd"]
-    sup = capture["packed_superstep"]
+    sup = superstep_check_and_time(errs, capture["packed_superstep"],
+                                   "the heaviest superstep")
+    sup_args = capture["packed_superstep"]
     vals, seg_ids, V = capture["segment_or"]
     scan_vals, flags = capture["segmented_or_scan"]
     words, directory, q = capture["rank"]
@@ -1802,11 +2091,10 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                       "W": int(X.shape[1]),
                       "layout": knfa.layout(X.shape[1])}),
         "packed_superstep": (
-            lambda: superstep_check_and_time(errs, sup,
-                                             "the heaviest superstep"),
-            superstep_bound(*sup[:2], *sup[6:]),
-            {"E": int(sup[8].shape[0]), "V": int(sup[0].shape[1]),
-             "S": int(sup[7].shape[1]), "W": int(sup[0].shape[2])}),
+            lambda: sup, (sup["bound_ms"], sup["bound_by"]),
+            {"E": int(sup_args[8].subj.shape[0]),
+             "V": int(sup_args[0].shape[1]), "S": int(sup_args[7].shape[1]),
+             "W": int(sup_args[0].shape[2])}),
         "segment_or": (checked("segment_or", kseg.segment_or_cuda,
                                ref.segment_or_ref, (vals, seg_ids, V)),
                        segment_or_bound(vals, V),
@@ -1834,16 +2122,21 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     sX, sbwd = capture["shard_X"], capture["shard_bwd"]
     shard_nfa_bound = nfa_bound(sX, sbwd.shape[0])
     shard_args, gathered = capture["shard_superstep"]
-    shard_sup_bound = superstep_bound(*shard_args[:2], *shard_args[6:],
-                                      gathered=gathered)
     shard_shape = {"shard": capture["shard_of"], "shards": MESH_SHARDS,
                    "R": int(gathered.shape[0]),
-                   "E_local": int(shard_args[8].shape[0]),
+                   "E_local": int(shard_args[8].subj.shape[0]),
                    "V_local": int(shard_args[0].shape[1]),
                    "V_pad": int(gathered.shape[1]),
                    "S": int(shard_args[7].shape[1]),
                    "W": int(gathered.shape[2]),
-                   "transition_words": capture["shard_live"]}
+                   "transition_words": capture["shard_superstep_live"]}
+    dense_args, _none = capture["dense_superstep"]
+    dense_shape = {"R": int(dense_args[0].shape[0]),
+                   "E": int(dense_args[8].subj.shape[0]),
+                   "V": int(dense_args[0].shape[1]),
+                   "S": int(dense_args[7].shape[1]),
+                   "W": int(dense_args[0].shape[2]),
+                   "transition_words": capture["dense_superstep_live"]}
     extra = {
         "nfa_step": {
             "launches_by_path": nfa_paths,
@@ -1858,13 +2151,17 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
             "launches_by_path": superstep_paths,
             "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
                                           "plain_ms", "bound_ms", "bound_by",
-                                          "max_abs_err")},
+                                          "max_abs_err", "edge_pass_bound_ms",
+                                          "design_bytes_ms", "parent_ms",
+                                          "turns_ms") if k in rows},
+            "dense": {"launches": superstep_paths["dense"], **dense_shape,
+                      **superstep_check_and_time(
+                          errs, dense_args, "the dense path's heaviest "
+                          "launch")},
             "shard": {"launches": superstep_paths["mesh"], **shard_shape,
                       **superstep_check_and_time(
                           errs, shard_args, "the mesh's heaviest shard "
-                          "launch", gathered=gathered),
-                      "bound_ms": shard_sup_bound[0],
-                      "bound_by": shard_sup_bound[1]}}}
+                          "launch", gathered=gathered)}}}
     out = []
     for name, (measure, (b, by), shape) in timed.items():
         times = measure()
@@ -1879,6 +2176,15 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
 
 
 def main() -> int:
+    global PARENT
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR", help=(
+        "a checkout of the parent commit (e.g. unpacked with git archive "
+        "into .proof_tree/parent): its own ops.packed_superstep is loaded, "
+        "its kernel built, and timed in turns with this tree's at every "
+        "superstep timing point"))
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1895,6 +2201,8 @@ def main() -> int:
         return 2
     from repro_torch.core import fixtures
     t_start = time.perf_counter()
+    if opts.parent is not None:
+        PARENT = ParentSuperstep(opts.parent)
     phase_device()
     errs: dict = {}
     capture: dict = {}
@@ -1916,7 +2224,8 @@ def main() -> int:
     rank = phase_rank(engine.ring, capture)
     emit(rank)
     dense, dense_engine, stats_s = phase_dense(graph, queries, answers,
-                                               skipped, hub_answers, adds)
+                                               skipped, hub_answers, adds,
+                                               capture)
     emit(dense)
     mesh = phase_mesh(graph, engine.ring, dense_engine.graph_stats, stats_s,
                       queries, answers, skipped, hub_answers, dense_engine,

@@ -17,10 +17,11 @@ One BFS superstep over the *backward* product graph is
     visited   |= new ; frontier = new
 
 The JAX package computes it on int8 planes as a matmul plus
-``segment_max`` (``repro/core/dense.py:136``); here it is one launch of
-the hand-written edge pass ``ops.packed_superstep`` over packed words,
+``segment_max`` (``repro/core/dense.py:136``); here it is one call of
+the hand-written superstep ``ops.packed_superstep`` over packed words,
 which computes the same function (the reference's own
-``test_packed_matches_dense`` holds the two equal).  A node is an
+``test_packed_matches_dense`` holds the two equal) over the edges
+grouped by object, so its work follows the live frontier.  A node is an
 *answer* when its state-0 (initial) bit lights up: bit 0 of word 0.
 
 One loop (:func:`bfs_rows`, whose host side :func:`superstep_loop` also
@@ -41,7 +42,8 @@ Live updates (:mod:`repro_torch.core.delta`): the masked-plane path.
 Tables carry one extra all-zero *inert* label row; a mutation relabels
 tombstoned base edges to it (they can never fire) and appends the
 overlay's insert buffer as extra edge rows (pow2-padded with inert
-rows, unsorted by subject: the kernel's scatter is exact in any order).
+rows, unsorted by subject); each epoch is an :class:`Edges`, grouped by
+object on the device once, inert edges dropped from the grouped view.
 
 Mesh sharding (``mesh=``/``shards=N``): the node axis of every one of
 these BFS shapes is range-partitioned over a mesh's data axes and the
@@ -63,6 +65,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.packed_superstep import (GroupedEdges, group_by_object,
+                                        new_scratch)
 from ..kernels.ref import popcount, widen
 from ..obs import trace as otrace
 from . import delta as dl
@@ -76,25 +80,42 @@ from .glushkov import Glushkov
 from .ring import LabeledGraph
 from .stats import GraphStats
 
-Edges = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+@dataclass(frozen=True, eq=False)  # identity hash: slots group by epoch
+class Edges:
+    """One edge epoch on the device: (subj, pred, obj) [E] int32 (label
+    ``inert_label`` for tombstones and padding) and their object-grouped
+    view, the layout ``ops.packed_superstep`` reads.  Never mutated, so a
+    slot pinned to an epoch reads that epoch's layout."""
+
+    subj: torch.Tensor
+    pred: torch.Tensor
+    obj: torch.Tensor
+    grouped: GroupedEdges
+
+    @classmethod
+    def build(cls, subj: torch.Tensor, pred: torch.Tensor, obj: torch.Tensor,
+              num_objects: int, inert_label: int) -> "Edges":
+        """Group the arrays on their device (:func:`group_by_object`)."""
+        return cls(subj, pred, obj, group_by_object(
+            subj, pred, obj, num_objects, inert_label))
 
 
 @dataclass
 class DenseGraph:
-    """Device-resident completed graph, edges sorted by backward-push
-    destination (= subject) for the segment-OR, with the same arrays on
-    the host (``host``: subj, pred, obj as int32 numpy)."""
+    """Device-resident completed graph: its base :class:`Edges` epoch
+    (``edges``: subj sorted ascending, pred in [0, 2P), obj, [E] int32
+    each, and their grouped view), with the same arrays on the host
+    (``host``: subj, pred, obj as int32 numpy)."""
 
-    subj: torch.Tensor  # [E] int32, sorted ascending
-    pred: torch.Tensor  # [E] int32 in [0, 2P)
-    obj: torch.Tensor   # [E] int32
+    edges: Edges
     num_nodes: int
     num_labels: int     # 2P
     host: Tuple[np.ndarray, np.ndarray, np.ndarray]
 
     @property
     def device(self) -> torch.device:
-        return self.subj.device
+        return self.edges.subj.device
 
     @classmethod
     def from_graph(cls, g: LabeledGraph, device=None) -> "DenseGraph":
@@ -105,8 +126,9 @@ class DenseGraph:
         order = np.argsort(s, kind="stable")
         host = tuple(a[order].astype(np.int32) for a in (s, p, o))
         subj, pred, obj = (torch.from_numpy(a).to(dev) for a in host)
-        return cls(subj=subj, pred=pred, obj=obj, num_nodes=g.num_nodes,
-                   num_labels=2 * g.num_preds, host=host)
+        L = 2 * g.num_preds
+        return cls(edges=Edges.build(subj, pred, obj, g.num_nodes, L),
+                   num_nodes=g.num_nodes, num_labels=L, host=host)
 
 
 def _words(mask: int, W: int) -> np.ndarray:
@@ -199,8 +221,9 @@ def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
              collector: Optional[list] = None,
              on_step: Optional[Callable] = None,
              span: Optional[Dict] = None):
-    """Run R BFS rows over ``edges`` (subj, pred, obj [E] int32) until
-    every row's frontier is empty or ``max_steps`` supersteps ran.
+    """Run R BFS rows over ``edges`` (an :class:`Edges` epoch, whose
+    grouped view the supersteps read) until every row's frontier is
+    empty or ``max_steps`` supersteps ran.
     ``frontier`` [R, V, W] int32 words (taken over: the loop writes it),
     ``visited`` the same shape (the JAX package's visited, or ``None``
     for the frontier itself), tables Bp [R, L, W] and PRED [R, S, W], all
@@ -217,13 +240,14 @@ def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
     trails the frontier by one superstep there); it must not write them.
     Each chunk is one ``dense.bfs_chunk`` span (``span``: its arguments,
     default ``steps=``)."""
-    subj, pred, obj = edges
     dev = frontier.device
     v = torch.zeros_like(frontier) if visited is None else visited.clone()
     # bufs[n % 3] is launch n's frontier, bufs[(n + 1) % 3] its output
     # (zero), bufs[(n + 2) % 3] the frontier before (it zeroes it)
     bufs = [frontier, torch.zeros_like(frontier), torch.zeros_like(frontier)]
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    layout = edges.grouped
+    scratch = new_scratch(layout, frontier.shape[0])
     counts: list = []     # ANALYZE: the chunk's (frontier, visited) bits
 
     def chunk(it: int, k: int) -> int:
@@ -237,7 +261,7 @@ def bfs_rows(edges: Edges, Bp: torch.Tensor, PRED: torch.Tensor,
                 if on_step is not None:
                     on_step(f, v, Bp, PRED)
                 ops.packed_superstep(f, v, nxt, spare, flag, n + 1, Bp, PRED,
-                                     subj, pred, obj)
+                                     layout, scratch)
             return int(flag.item())
 
     def record(it: int) -> None:
@@ -314,7 +338,7 @@ class DenseRPQ(dl.LiveUpdateEngine):
         self.delta: Optional[dl.DeltaOverlay] = None  # live-update overlay
         self.compact_threshold = compact_threshold
         self.compactions = 0
-        self._eff: Optional[Edges] = None  # (subj, pred, obj) with overlay
+        self._eff: Optional[Edges] = None  # the epoch with the overlay
         self._stats = stats
         self._edge_s: Optional[np.ndarray] = None   # completed edges,
         self._edge_o: Optional[np.ndarray] = None   # label-major order
@@ -356,8 +380,9 @@ class DenseRPQ(dl.LiveUpdateEngine):
         tombstoned base edges are relabeled to the inert label — their
         B row is all-zero, so they can never fire — and the overlay's
         insert buffer is appended as extra edge rows (padded to a power
-        of two).  The arrays are fresh tensors, never the old ones
-        mutated, so a stepper slot pinned to the old ones reads its
+        of two), then grouped by object on the device (inert edges
+        dropped).  The epoch is a fresh :class:`Edges`, never the old one
+        mutated, so a stepper slot pinned to the old one reads its
         admission epoch.  A mesh-sharded engine re-partitions the same
         arrays."""
         ov = self.delta
@@ -380,8 +405,9 @@ class DenseRPQ(dl.LiveUpdateEngine):
             pad_o[:do.size] = do
             subj, pred, obj = (np.concatenate([a, pad]) for a, pad in
                                ((subj, pad_s), (pred, pad_p), (obj, pad_o)))
-            self._eff = tuple(torch.from_numpy(a).to(self.device)
-                              for a in (subj, pred, obj))
+            self._eff = Edges.build(
+                *(torch.from_numpy(a).to(self.device)
+                  for a in (subj, pred, obj)), self.dg.num_nodes, L)
         else:
             self._eff = None
         if self.sharded is not None:
@@ -391,10 +417,9 @@ class DenseRPQ(dl.LiveUpdateEngine):
                 num_nodes=self.dg.num_nodes, num_labels=L))
 
     def _edges(self) -> Edges:
-        """The (subj, pred, obj) device arrays every BFS runs over —
-        the effective set when an overlay is live, else the base."""
-        return self._eff if self._eff is not None \
-            else (self.dg.subj, self.dg.pred, self.dg.obj)
+        """The edge epoch every BFS runs over — the effective set when
+        an overlay is live, else the base."""
+        return self._eff if self._eff is not None else self.dg.edges
 
     def compact(self) -> None:
         """Fold the overlay into a fresh base graph + edge arrays.
@@ -984,7 +1009,8 @@ class DenseRPQ(dl.LiveUpdateEngine):
 class _DenseSlot:
     """One in-flight dense BFS under continuous batching: its own
     frontier/visited words on the engine's device between ticks, pinned
-    to the edge-array snapshot of its admission epoch."""
+    to the :class:`Edges` epoch (arrays and grouped layout) of its
+    admission."""
 
     __slots__ = ("plan", "start", "edges", "S_pad", "frontier", "visited",
                  "active")
@@ -1019,10 +1045,11 @@ class DenseStepper:
     launch shapes.  The initial-state bit of ``visited`` only ever grows,
     which makes incremental result streaming sound.
 
-    Version snapshots: ``add_job`` pins the (subj, pred, obj) arrays
-    the slot's BFS reads.  ``submit_update`` builds the next epoch's
-    effective arrays OFF TO THE SIDE (``_on_overlay_change`` constructs
-    fresh tensors, never mutating old ones), so in-flight slots keep
+    Version snapshots: ``add_job`` pins the :class:`Edges` epoch (the
+    arrays and their grouped layout) the slot's BFS reads.
+    ``submit_update`` builds the next epoch OFF TO THE SIDE
+    (``_on_overlay_change`` constructs a fresh :class:`Edges`, never
+    mutating old ones), so in-flight slots keep
     reading their admission epoch — at most two snapshots are live at
     once (draining + current), keeping the group count bounded.
     """
@@ -1036,8 +1063,8 @@ class DenseStepper:
     def add_job(self, plan: _DensePlan, start: int,
                 edges: Optional[Edges] = None) -> _DenseSlot:
         """Admit one backward BFS from ``start`` (before the next tick).
-        ``edges`` pins the (subj, pred, obj) snapshot; default = the
-        engine's current effective arrays."""
+        ``edges`` pins the :class:`Edges` snapshot; default = the
+        engine's current epoch."""
         eng = self.eng
         edges = edges if edges is not None else eng._edges()
         slot = _DenseSlot(plan, int(start), edges,
@@ -1071,7 +1098,7 @@ class DenseStepper:
         groups: Dict[Tuple, List[_DenseSlot]] = {}
         for slot in self.slots:
             if slot.active:
-                key = (tuple(id(a) for a in slot.edges), slot.S_pad)
+                key = (id(slot.edges), slot.S_pad)
                 groups.setdefault(key, []).append(slot)
         with otrace.span("dense.superstep", cat="engine",
                          slots=len(self.slots), groups=len(groups)):

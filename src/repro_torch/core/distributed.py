@@ -59,8 +59,9 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.packed_superstep import new_scratch
 from ..obs import trace as otrace
-from .dense import superstep_loop
+from .dense import Edges, superstep_loop
 from .stats import host_array
 
 
@@ -235,16 +236,20 @@ def make_task_shard_step(mesh: Mesh, data_axes: Tuple[str, ...]):
 
 class _Replica:
     """One shard's BFS state on its device: three rotating frontier
-    buffers and the visited words, [R, Vl, W] int32 each, plus the
-    shard's edges (subj local)."""
+    buffers and the visited words, [R, Vl, W] int32 each, the shard's
+    edges (an :class:`~repro_torch.core.dense.Edges`, subj local, grouped
+    over the gathered frontier's rows) and the superstep scratch of this
+    BFS."""
 
-    __slots__ = ("k", "j", "device", "bufs", "v", "edges")
+    __slots__ = ("k", "j", "device", "bufs", "v", "edges", "scratch")
 
-    def __init__(self, k: int, j: int, device, start: torch.Tensor, edges):
+    def __init__(self, k: int, j: int, device, start: torch.Tensor,
+                 edges: Edges):
         self.k, self.j, self.device, self.edges = k, j, device, edges
         f = start.to(device, copy=True).contiguous()
         self.bufs = [f, torch.zeros_like(f), torch.zeros_like(f)]
         self.v = torch.zeros_like(f)
+        self.scratch = new_scratch(edges.grouped, f.shape[0])
 
 
 def shard_superstep(replicas: Sequence[_Replica],
@@ -281,7 +286,8 @@ def shard_superstep(replicas: Sequence[_Replica],
         f, nxt, spare = (r.bufs[(n + d) % 3] for d in range(3))
         B, P = tables[r.device]
         ops.packed_superstep(f, r.v, nxt, spare, flags[r.device], n + 1, B,
-                             P, *r.edges, gathered=gathered[r.device])
+                             P, r.edges.grouped, r.scratch,
+                             gathered=gathered[r.device])
     for owner in owners:
         peers = [r for r in replicas if r.k == owner.k and r.j > 0]
         if not peers:
@@ -336,14 +342,18 @@ class ShardedDenseExec:
         Node count and label alphabet are fixed between rebuilds, so the
         row partition and tables are untouched; only the per-shard edge
         arrays (and their padded length) change.  Model shard j of a data
-        shard takes the j-th equal block of its edges."""
+        shard takes the j-th equal block of its edges.  Each block's
+        device copy is grouped by object over the gathered frontier's
+        V_pad rows there, which drops the inert padding and tombstones
+        (the host partition keeps the JAX package's layout)."""
         self.sg = ShardedGraph.from_dense(dg, self.num_shards,
                                           pad_multiple=self._pad_multiple)
         Em = self.sg.subj_local.shape[1] // self._pad_multiple
         self._edges = [
-            [tuple(torch.from_numpy(np.ascontiguousarray(
+            [Edges.build(*(torch.from_numpy(np.ascontiguousarray(
                 a[k, j * Em:(j + 1) * Em])).to(dev)
-                for a in (self.sg.subj_local, self.sg.pred, self.sg.obj))
+                for a in (self.sg.subj_local, self.sg.pred, self.sg.obj)),
+                self.sg.num_nodes_padded, self.num_labels)
              for j, dev in enumerate(row)]
             for k, row in enumerate(self.shard_devices)]
         self.edge_refreshes += 1

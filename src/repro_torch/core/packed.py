@@ -1,9 +1,9 @@
 """Bit-packed BFS: the paper's word-level representation on the card.
 
 Frontier and visited sets are packed state words ([V, W] uint32 bit
-patterns in int32 tensors, W = ceil(S/32)), and each superstep sweeps
-every edge of a :class:`DenseGraph` in one kernel launch
-(``kernels/packed_superstep.py``):
+patterns in int32 tensors, W = ceil(S/32)), and each superstep expands
+the edges of the live objects of a :class:`DenseGraph` (its edges
+grouped by object) in one kernel call (``kernels/packed_superstep.py``):
 
     X = frontier[obj] & B[pred]       (gather + Fact-1 mask)
     Y = T'[X]                         (the transition, as nfa_step)
@@ -53,7 +53,7 @@ def packed_bfs(
     Bp, bwd)``, the [V, W], [L, W] and [S, W] tensors that superstep
     reads: ``visited`` does not hold the frontier's bits yet (the
     superstep ORs them in), and the superstep's transition inputs are
-    ``frontier[dg.obj] & Bp[dg.pred]``.  The hook must not write them."""
+    ``frontier[dg.edges.obj] & Bp[dg.edges.pred]``.  The hook must not write them."""
     V = dg.num_nodes
     W = g.nwords
     dev = dg.device
@@ -68,7 +68,7 @@ def packed_bfs(
         def hook(f, v, _Bp, _bwd):
             on_step(f[0], v[0], Bp, bwd)
     visited, _frontier, it = bfs_rows(
-        (dg.subj, dg.pred, dg.obj), Bp[None], bwd[None],
+        dg.edges, Bp[None], bwd[None],
         ops.words_to_tensor(planes, dev)[None], steps, on_step=hook)
     return ops.tensor_to_words(visited[0]), it
 

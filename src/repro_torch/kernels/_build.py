@@ -36,9 +36,8 @@ SOURCES = {
         "nfa_step_launch": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     }),
     "packed_superstep": ("packed_superstep.cu", {
-        "packed_superstep_launch": ([_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                     _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                                     _I, _P], _I),
+        "packed_superstep_launch": ([_P] * 6 + [_I] + [_P] * 7 + [_L]
+                                    + [_I] * 7 + [_P], _I),
     }),
     "segment_or": ("segment_or.cu", {
         "segment_or_launch": ([_P, _P, _P, _L, _I, _I, _P], _I),

@@ -92,24 +92,27 @@ def segment_or(vals: torch.Tensor, seg_ids: torch.Tensor,
 
 def packed_superstep(f: torch.Tensor, v: torch.Tensor, nxt: torch.Tensor,
                      spare: torch.Tensor, flag: torch.Tensor, stamp: int,
-                     Bp: torch.Tensor, bwd: torch.Tensor, subj: torch.Tensor,
-                     pred: torch.Tensor, obj: torch.Tensor,
+                     Bp: torch.Tensor, bwd: torch.Tensor,
+                     layout: _sup.GroupedEdges,
+                     scratch: _sup.SuperstepScratch,
                      gathered: torch.Tensor = None) -> None:
     """One superstep of R packed BFS runs, in place: per row r,
     ``v[r] |= f[r]``, then ``nxt[r] |= segment_or(nfa_step(g[r][obj] &
     Bp[r][pred], bwd[r]), subj, V) & ~v[r]`` (nxt zero on entry),
     ``spare`` zeroed, and ``flag[0] = stamp`` if that put a non-zero word
     into some nxt row.  f, v, nxt, spare: four [R, V, W] int32 word
-    buffers; Bp [R, L, W], bwd [R, S, W]; subj, pred, obj [E] int32 ids
-    in range, shared by the rows; flag [1] int32.  ``g`` is ``gathered``
-    [R, Vg, W] when given (a shard's superstep reads the frontier gathered
-    over the mesh at ``obj``; ``subj`` is local to its ``V`` rows), else
-    ``f``.  A call changes nothing while ``flag[0] < stamp - 1`` (the
-    superstep before found nothing).  See ``kernels/packed_superstep.py``
-    for the buffer rotation a caller runs."""
+    buffers; Bp [R, L, W], bwd [R, S, W]; ``layout`` the edges grouped
+    by object (``kernels/packed_superstep.py`` ``group_by_object``),
+    shared by the rows; ``scratch`` the worklist of this BFS (its
+    ``new_scratch``); flag [1] int32.  ``g`` is ``gathered`` [R, Vg, W]
+    when given (a shard's superstep reads the frontier gathered over the
+    mesh; its ``subj`` is local to its ``V`` rows), else ``f``.  A call changes nothing while
+    ``flag[0] < stamp - 1`` (the superstep before found nothing).  See
+    ``kernels/packed_superstep.py`` for the buffer rotation a caller
+    runs."""
     _route("packed_superstep", _sup.packed_superstep_cuda,
            _sup.packed_superstep_plain, f)(f, v, nxt, spare, flag, stamp,
-                                           Bp, bwd, subj, pred, obj,
+                                           Bp, bwd, layout, scratch,
                                            gathered=gathered)
 
 

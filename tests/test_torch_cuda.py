@@ -24,6 +24,7 @@ from repro_torch.core.scheduler import SlotScheduler  # noqa: E402
 from repro_torch.kernels import nfa_step as knfa, ops  # noqa: E402
 from repro_torch.kernels import packed_superstep as ksup  # noqa: E402
 from repro_torch.kernels import rank_popcount as krank  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import segment_or as kseg  # noqa: E402
 
 SHAPES = [(1, 1), (5, 4), (700, 33), (1024, 64), (513, 32), (2048, 7),
@@ -290,7 +291,8 @@ def test_packed_bfs_on_card_matches_host(cuda_device):
     card = DenseGraph.from_graph(g, device=cuda_device)
     host = DenseGraph.from_graph(g, device="cpu")
     for n in ("subj", "pred", "obj"):
-        assert torch.equal(getattr(card, n).cpu(), getattr(host, n))
+        assert torch.equal(getattr(card.edges, n).cpu(),
+                           getattr(host.edges, n))
     exprs = ["0/1*", "(0|2)+/^1", "^0/(1|3)*/2", "0+"]
     exprs.append("/".join("(0|^1)" if k % 3 else "2*" for k in range(20)))
     tk.reset_launch_counts()
@@ -329,16 +331,53 @@ def _superstep_arrays(rng, V, E, S, L, live, ordered):
     return f, v, spare, Bp, bwd, subj, pred, obj
 
 
-def _superstep_on(dev, f, v, spare, Bp, bwd, subj, pred, obj, stamp=3):
-    """One superstep on ``dev``; [V, W] words and tables get a row axis
-    of one unless they have one.  The flag starts at ``stamp - 1``, so
-    the call does its work."""
-    t = [_on(dev, a) for a in (f, v, spare, Bp, bwd, subj, pred, obj)]
-    t[:5] = [a if a.dim() == 3 else a[None] for a in t[:5]]
+def _grouped_on(dev, subj, pred, obj, num_objects, inert_label, rows):
+    """numpy edge ids grouped by object on ``dev``, and scratch for
+    ``rows`` rows."""
+    layout = ksup.group_by_object(*(_on(dev, a) for a in (subj, pred, obj)),
+                                  num_objects, inert_label)
+    return layout, ksup.new_scratch(layout, rows)
+
+
+def _superstep_on(dev, f, v, spare, Bp, bwd, subj, pred, obj, stamp=3,
+                  inert_label=None):
+    """One superstep on ``dev`` over the edges grouped by object
+    (``inert_label`` dropped: by default one past the table's labels, so
+    none); [V, W] words and tables get a row axis of one unless they have
+    one.  The flag starts at ``stamp - 1``, so the call does its work."""
+    t = [_on(dev, a) for a in (f, v, spare, Bp, bwd)]
+    t = [a if a.dim() == 3 else a[None] for a in t]
     nxt = torch.zeros_like(t[0])
     flag = torch.full((1,), stamp - 1, dtype=torch.int32, device=dev)
-    ops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, *t[3:])
+    inert = t[3].shape[1] if inert_label is None else inert_label
+    ops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, *t[3:],
+                         *_grouped_on(dev, subj, pred, obj, t[0].shape[1],
+                                      inert, t[0].shape[0]))
     return [a.cpu().numpy() for a in (t[0], t[1], nxt, t[2], flag)]
+
+
+def _raw_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp=3,
+                   flag=None, gathered=None):
+    """The superstep's plain version on the host over the raw edge arrays
+    (``ref.packed_superstep_ref`` on the edges whose ids are in range:
+    the others select nothing), apart from any grouped layout, so a card
+    result held to it also holds the card's grouping to the edges it came
+    from.  The flag starts at ``flag`` (default ``stamp - 1``)."""
+    t = [_on("cpu", a) for a in (f, v, spare, Bp, bwd)]
+    t = [a if a.dim() == 3 else a[None] for a in t]
+    g = None if gathered is None else _on("cpu", gathered)
+    V = t[0].shape[1]
+    Vg = V if g is None else g.shape[1]
+    keep = (subj >= 0) & (subj < V) & (pred >= 0) & \
+        (pred < t[3].shape[1]) & (obj >= 0) & (obj < Vg)
+    nxt = torch.zeros_like(t[0])
+    flag = torch.full((1,), stamp - 1 if flag is None else flag,
+                      dtype=torch.int32)
+    kref.packed_superstep_ref(t[0], t[1], nxt, t[2], flag, stamp, *t[3:],
+                              *(_on("cpu", a[keep]) for a in (subj, pred,
+                                                              obj)),
+                              gathered=g)
+    return [a.numpy() for a in (t[0], t[1], nxt, t[2], flag)]
 
 
 @pytest.mark.cuda
@@ -354,14 +393,14 @@ def test_packed_superstep_cuda_matches_plain(cuda_device, V, E, S, L, live,
     """Hub-law ids, W = 1 and 2, an empty frontier, unsorted subjects, E
     not a multiple of a block and past one pass of the grid, and wide
     tables (S = 1,280: 206 KB, W = 40, past one output chunk); the flag
-    too."""
+    too; held to the plain version on the raw edge arrays."""
     arrays = _superstep_arrays(np.random.default_rng(V + E + S), V, E, S,
                                L, live, ordered)
     tk.reset_launch_counts()
     got = _superstep_on(cuda_device, *arrays)
     torch.cuda.synchronize()
     assert tk.launch_counts()["packed_superstep"] == 1
-    want = _superstep_on("cpu", *arrays)
+    want = _raw_superstep(*arrays)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert int(got[4][0]) == (3 if got[2].any() else 2)
@@ -370,10 +409,13 @@ def test_packed_superstep_cuda_matches_plain(cuda_device, V, E, S, L, live,
 
 @pytest.mark.cuda
 def test_packed_superstep_cuda_rejects_bad_inputs(cuda_device):
+    from dataclasses import replace
     z = torch.zeros((1, 4, 2), dtype=torch.int32, device=cuda_device)
     ids = torch.zeros(3, dtype=torch.int32, device=cuda_device)
     flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     bwd = torch.zeros((1, 5, 2), dtype=torch.int32, device=cuda_device)
+    lay = ksup.group_by_object(ids, ids, ids, 4, 1)
+    scr = ksup.new_scratch(lay, 1)
 
     def state():
         return [torch.zeros_like(z) for _ in range(4)]
@@ -381,29 +423,32 @@ def test_packed_superstep_cuda_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                      # not contiguous
         ksup.packed_superstep_cuda(*state()[:3], torch.zeros(
             (1, 2, 4), dtype=torch.int32, device=cuda_device).transpose(
-                1, 2), flag, 1, z, bwd, ids, ids, ids)
+                1, 2), flag, 1, z, bwd, lay, scr)
     with pytest.raises(ValueError):                      # two devices
-        ksup.packed_superstep_cuda(*state(), flag.cpu(), 1, z, bwd, ids,
-                                   ids, ids)
+        ksup.packed_superstep_cuda(*state(), flag.cpu(), 1, z, bwd, lay,
+                                   scr)
     with pytest.raises(TypeError):
-        ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd.long(), ids,
-                                   ids, ids)
+        ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd.long(), lay,
+                                   scr)
     with pytest.raises(ValueError):                      # one buffer twice
         f, v, nxt, _ = state()
-        ksup.packed_superstep_cuda(f, v, nxt, v, flag, 1, z, bwd, ids, ids,
-                                   ids)
+        ksup.packed_superstep_cuda(f, v, nxt, v, flag, 1, z, bwd, lay, scr)
     with pytest.raises(ValueError):                      # W disagrees
-        ksup.packed_superstep_cuda(*state(), flag, 1, z[:, :, :1], bwd, ids,
-                                   ids, ids)
+        ksup.packed_superstep_cuda(*state(), flag, 1, z[:, :, :1], bwd, lay,
+                                   scr)
     with pytest.raises(ValueError):                      # R disagrees
         ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd.expand(
-            2, -1, -1).contiguous(), ids, ids, ids)
+            2, -1, -1).contiguous(), lay, scr)
+    with pytest.raises(ValueError):                      # a host worklist
+        ksup.packed_superstep_cuda(*state(), flag, 1, z, bwd, lay,
+                                   replace(scr, work=scr.work.cpu()))
     # no edges: the pass still visits the frontier and clears spare
     f, v, nxt, spare = state()
     f[0, 1, 0] = 5
     spare.fill_(9)
-    ksup.packed_superstep_cuda(f, v, nxt, spare, flag, 1, z, bwd, ids[:0],
-                               ids[:0], ids[:0])
+    none = ksup.group_by_object(ids[:0], ids[:0], ids[:0], 4, 1)
+    ksup.packed_superstep_cuda(f, v, nxt, spare, flag, 1, z, bwd, none,
+                               ksup.new_scratch(none, 1))
     assert int(v[0, 1, 0]) == 5 and not bool(spare.any())
     assert not bool(nxt.any()) and int(flag[0]) == 0
 
@@ -459,20 +504,144 @@ def test_packed_superstep_rows_cuda_matches_plain(cuda_device, R, V, E, S, L,
                          live)
     assert (arrays[6] == L).any()
     tk.reset_launch_counts()
-    got = _superstep_on(cuda_device, *arrays)
+    got = _superstep_on(cuda_device, *arrays, inert_label=L)
     torch.cuda.synchronize()
     assert tk.launch_counts()["packed_superstep"] == 1
-    want = _superstep_on("cpu", *arrays)
+    want = _raw_superstep(*arrays)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    t = [_on(cuda_device, a) for a in arrays]
+    t = [_on(cuda_device, a) for a in arrays[:5]]
     before = [a.clone() for a in t[:3]]
     flag = torch.ones(1, dtype=torch.int32, device=cuda_device)
     ksup.packed_superstep_cuda(t[0], t[1], torch.zeros_like(t[0]), t[2],
-                               flag, 3, *t[3:])
+                               flag, 3, *t[3:], *_grouped_on(
+                                   cuda_device, *arrays[5:], V, L, R))
     for a, b in zip(t[:3], before):
         assert torch.equal(a, b)
     assert int(flag[0]) == 1
+
+
+def _grouped_arrays(rng, R, W, case):
+    """A superstep's numpy inputs for the grouped layout's card cases:
+    V = 3,000 nodes, 40,000 edges (12,000 at W = 9), a hub object (1,100
+    edges, many tiles) and hub-law
+    subjects; ``case`` "sparse" (5% of the (row, node) pairs live),
+    "empty", "full" (every pair live: the worklist fills to capacity),
+    "stale" (the flag below stamp - 1), "gathered" (a frontier of 3 V
+    rows that the objects index, V != Vg) or "ids" (inert-label edges
+    and ids out of range on every axis).  Returns (f, v, spare, Bp, bwd,
+    g or None, subj, pred, obj, L)."""
+    V, E, L = 3_000, 40_000 if W < 9 else 12_000, 8
+    S = 32 * W - 5
+    Vg = 3 * V if case == "gathered" else V
+    live = {"sparse": 0.05, "empty": 0.0, "full": 1.0}.get(case, 0.3)
+    wn = 1.0 / np.arange(1, V + 1) ** 0.8
+    subj = rng.choice(V, size=E, p=wn / wn.sum()).astype(np.int32)
+    pred = rng.integers(0, L + 1, E).astype(np.int32)
+    obj = rng.integers(0, Vg, E).astype(np.int32)
+    obj[:1_100] = 7
+    if case == "ids":
+        bad = rng.random(E) < 0.02
+        obj[bad] = rng.choice([-3, Vg, Vg + 50], bad.sum())
+        bad = rng.random(E) < 0.02
+        subj[bad] = rng.choice([-1, V, V + 9], bad.sum())
+        bad = rng.random(E) < 0.02
+        pred[bad] = rng.choice([-2, L + 1, L + 40], bad.sum())
+
+    def words(rows, share):
+        a = rng.integers(0, 2**32, (R, rows, W), dtype=np.uint32)
+        a[..., -1] |= np.uint32(1 << 31)          # bits at and above S
+        if share >= 1.0:
+            a[..., 0] |= np.uint32(1)            # a bit below S everywhere
+        a[rng.random((R, rows)) >= share] = 0
+        return a
+
+    g = words(Vg, live) if case == "gathered" else None
+    f = words(V, live)
+    v = rng.integers(0, 2**32, (R, V, W), dtype=np.uint32)
+    v[rng.random((R, V, W)) < 0.8] = 0
+    spare = rng.integers(0, 2**32, (R, V, W), dtype=np.uint32)
+    Bp = rng.integers(0, 2**32, (R, L + 1, W), dtype=np.uint32)
+    Bp[:, L] = 0
+    bwd = rng.integers(0, 2**32, (R, S, W), dtype=np.uint32)
+    return f, v, spare, Bp, bwd, g, subj, pred, obj, L
+
+
+def _grouped_superstep_on(dev, arrays, stale):
+    """One superstep of ``_grouped_arrays`` on ``dev`` at stamp 5 (the
+    flag at 3 when ``stale``, else 4): the state, the flag and the
+    worklist count A queued."""
+    f, v, spare, Bp, bwd, g, subj, pred, obj, L = arrays
+    t = [_on(dev, a) for a in (f, v, spare, Bp, bwd)]
+    gathered = None if g is None else _on(dev, g)
+    Vg = t[0].shape[1] if g is None else g.shape[1]
+    layout, scratch = _grouped_on(dev, subj, pred, obj, Vg, L,
+                                  t[0].shape[0])
+    nxt = torch.zeros_like(t[0])
+    flag = torch.full((1,), 3 if stale else 4, dtype=torch.int32,
+                      device=dev)
+    ops.packed_superstep(t[0], t[1], nxt, t[2], flag, 5, *t[3:], layout,
+                         scratch, gathered=gathered)
+    return [a.cpu().numpy() for a in (t[0], t[1], nxt, t[2], flag)], \
+        int(scratch.counters[5 % 3]), layout
+
+
+def _tiles_live(arrays, layout):
+    """Worklist entries the live (row, object) pairs need: ceil(degree /
+    tile) for each pair with a frontier bit below S."""
+    f, _v, _s, _B, bwd, g, *_ = arrays
+    g = f if g is None else g
+    S = bwd.shape[1]
+    below = g.copy()
+    below[..., S // 32] &= np.uint32((1 << (S % 32)) - 1)
+    below[..., S // 32 + 1:] = 0
+    live = below.any(axis=2)                              # [R, Vg]
+    off = layout.offsets.cpu().numpy().astype(np.int64)
+    tiles = (off[1:] - off[:-1] + ksup.TILE - 1) // ksup.TILE
+    return int((live * tiles[None]).sum())
+
+
+_GROUPED_CASES = [(R, W, "sparse") for R in (1, 3, 16, 40)
+                  for W in (1, 2, 9)] + \
+    [(R, W, case) for R, W in ((1, 1), (16, 9), (40, 2))
+     for case in ("empty", "full", "stale", "gathered", "ids")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W,case", _GROUPED_CASES)
+def test_grouped_superstep_cuda_matches_plain(cuda_device, R, W, case):
+    """The frontier-driven superstep on the card, bit for bit with its
+    plain version on the raw edge arrays (so the card's grouping is held
+    to them too): R up to 40 (no row mask assumed), W = 9 past the
+    kernel's 8-word output chunk, a hub of over four tiles, an empty
+    frontier, a stale flag (nothing written), a gathered frontier of
+    another height, inert and out-of-range ids, and a frontier live
+    everywhere (the worklist full); the worklist count is what the live
+    pairs need."""
+    arrays = _grouped_arrays(np.random.default_rng(R * 100 + W), R, W, case)
+    stale = case == "stale"
+    tk.reset_launch_counts()
+    got, queued, layout = _grouped_superstep_on(cuda_device, arrays, stale)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["packed_superstep"] == 1
+    f, v, spare, Bp, bwd, g, subj, pred, obj, _L = arrays
+    want = _raw_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp=5,
+                          flag=3 if stale else 4, gathered=g)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(g_, w)
+    deg = (layout.offsets[1:] - layout.offsets[:-1]).max()
+    assert int(deg) >= 4 * ksup.TILE
+    if stale:
+        for a, b in zip(got[:2] + got[3:4], arrays[:3]):
+            np.testing.assert_array_equal(a.view(np.uint32), b)
+        assert not got[2].any() and int(got[4][0]) == 3 and queued == 0
+        return
+    assert queued == _tiles_live(arrays, layout)
+    if case == "full":
+        assert queued == R * layout.tiles
+    if case == "empty":
+        assert queued == 0 and int(got[4][0]) == 4
+    assert not got[3].any()
 
 
 @pytest.mark.cuda

@@ -218,6 +218,7 @@ def test_dense_graph_keeps_host_edges():
     """The engine's host copy of the sorted edges is the device's."""
     g = rfix.random_graph(30, 3, 100, seed=2)
     _ref, port = dense_engines(g)
-    for t, a in zip((port.dg.subj, port.dg.pred, port.dg.obj), port.dg.host):
+    e = port.dg.edges
+    for t, a in zip((e.subj, e.pred, e.obj), port.dg.host):
         assert torch.equal(t, torch.from_numpy(a))
     assert RDense(g).dg.num_labels == port.dg.num_labels

@@ -78,10 +78,11 @@ def test_live_update_insert_buffer_is_unsorted_and_padded():
     g = rfix.random_graph(16, 2, 40, seed=5)
     _ref, port = dense_engines(g)
     L = port.dg.num_labels
-    E = port.dg.subj.numel()
+    E = port.dg.edges.subj.numel()
     port.add_edges([(9, 0, 1), (2, 1, 3), (7, 0, 0)])
     port.remove_edges([(int(g.s[0]), int(g.p[0]), int(g.o[0]))])
-    subj, pred, _obj = port._edges()
+    eff = port._edges()
+    subj, pred = eff.subj, eff.pred
     assert subj.numel() == E + 8
     assert (pred[:E] == L).sum() == 2        # the edge and its inverse
     tail = subj[E:E + 6].tolist()

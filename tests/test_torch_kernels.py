@@ -378,16 +378,26 @@ def _superstep_inputs(edges, V, E, S, live, seed=0):
             pred.astype(np.int32), obj.astype(np.int32))
 
 
+def _grouped(subj, pred, obj, num_objects, inert_label, rows=1):
+    """numpy edge ids grouped by object on the CPU, and scratch for
+    ``rows`` rows."""
+    layout = tsup.group_by_object(
+        *(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+          for a in (subj, pred, obj)), num_objects, inert_label)
+    return layout, tsup.new_scratch(layout, rows)
+
+
 def _port_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp=7):
     """The port's superstep on CPU copies, one row (the flag at ``stamp -
-    1``, so the call does its work): (v, nxt, spare, flag) after."""
+    1``, so the call does its work), over the edges grouped by object:
+    (v, nxt, spare, flag) after."""
     t = [tops.words_to_tensor(a, "cpu")[None]
          for a in (f, v, spare, Bp, bwd)]
-    ids = [torch.from_numpy(a) for a in (subj, pred, obj)]
     nxt = torch.zeros_like(t[0])
     flag = torch.full((1,), stamp - 1, dtype=torch.int32)
     tops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, t[3], t[4],
-                          *ids)
+                          *_grouped(subj, pred, obj, f.shape[0],
+                                    Bp.shape[0]))
     np.testing.assert_array_equal(tops.tensor_to_words(t[0][0]), f)
     return (tops.tensor_to_words(t[1][0]), tops.tensor_to_words(nxt[0]),
             tops.tensor_to_words(t[2][0]), int(flag[0]))
@@ -417,43 +427,62 @@ def test_packed_superstep_matches_reference(edges, V, E, S, live):
 
 
 def test_packed_superstep_wrappers_check_inputs_and_never_fall_back():
+    from dataclasses import replace
     z = torch.zeros((1, 4, 1), dtype=torch.int32)
     ids = torch.zeros(3, dtype=torch.int32)
     flag = torch.zeros(1, dtype=torch.int32)
     bwd = torch.zeros((1, 2, 1), dtype=torch.int32)
+    lay = tsup.group_by_object(ids, ids, ids, 4, 1)
+    scr = tsup.new_scratch(lay, 1)
+    edges = (lay, scr)
 
     def state():
         return [torch.zeros_like(z) for _ in range(4)]
 
     with pytest.raises(ValueError):       # the CUDA wrapper wants CUDA
-        tsup.packed_superstep_cuda(*state(), flag, 1, z, bwd, ids, ids, ids)
+        tsup.packed_superstep_cuda(*state(), flag, 1, z, bwd, *edges)
     with pytest.raises(TypeError):
-        tops.packed_superstep(*state(), flag, 1, z, bwd, ids.long(), ids,
-                              ids)
+        tops.packed_superstep(*state(), flag, 1, z, bwd,
+                              replace(lay, subj=lay.subj.long()), scr)
     with pytest.raises(ValueError):       # state buffers of two shapes
-        tops.packed_superstep(*state()[:3], z[:, :2], flag, 1, z, bwd, ids,
-                              ids, ids)
+        tops.packed_superstep(*state()[:3], z[:, :2], flag, 1, z, bwd,
+                              *edges)
     with pytest.raises(ValueError):       # one buffer twice
         f, v, nxt, _ = state()
-        tops.packed_superstep(f, v, nxt, f, flag, 1, z, bwd, ids, ids, ids)
+        tops.packed_superstep(f, v, nxt, f, flag, 1, z, bwd, *edges)
     with pytest.raises(ValueError):       # table wider than the words
         tops.packed_superstep(*state(), flag, 1, z,
                               torch.zeros((1, 33, 1), dtype=torch.int32),
-                              ids, ids, ids)
+                              *edges)
     with pytest.raises(ValueError):       # edge ids of two lengths
-        tops.packed_superstep(*state(), flag, 1, z, bwd, ids, ids[:2], ids)
+        tops.packed_superstep(*state(), flag, 1, z, bwd,
+                              replace(lay, pred=lay.pred[:2]), scr)
     with pytest.raises(ValueError):       # tables of another row count
         tops.packed_superstep(*state(), flag, 1, z,
                               torch.zeros((2, 2, 1), dtype=torch.int32),
-                              ids, ids, ids)
+                              *edges)
     with pytest.raises(ValueError):       # words without a row axis
         tops.packed_superstep(*[t[0] for t in state()], flag, 1, z[0],
-                              bwd[0], ids, ids, ids)
+                              bwd[0], *edges)
+    with pytest.raises(ValueError):       # grouped over another frontier
+        tops.packed_superstep(*state(), flag, 1, z, bwd,
+                              tsup.group_by_object(ids, ids, ids, 5, 1), scr)
+    with pytest.raises(ValueError):       # a worklist too small for R
+        two = [torch.zeros((2, 4, 1), dtype=torch.int32) for _ in range(4)]
+        tops.packed_superstep(*two, flag, 1, two[0].clone(),
+                              torch.zeros((2, 2, 1), dtype=torch.int32),
+                              *edges)
+    with pytest.raises(ValueError):       # counters of another shape
+        tops.packed_superstep(*state(), flag, 1, z, bwd, lay,
+                              replace(scr, counters=scr.counters[:2]))
     with pytest.raises(ValueError):       # no third device kind
+        meta = replace(lay, offsets=lay.offsets.to("meta"),
+                       subj=lay.subj.to("meta"), pred=lay.pred.to("meta"))
         tops.packed_superstep(*[t.to("meta") for t in state()],
                               flag.to("meta"), 1, z.to("meta"),
-                              bwd.to("meta"), ids.to("meta"),
-                              ids.to("meta"), ids.to("meta"))
+                              bwd.to("meta"), meta,
+                              replace(scr, work=scr.work.to("meta"),
+                                      counters=scr.counters.to("meta")))
 
 
 def _row_inputs(R, V, E, S, L, live, seed):
@@ -485,7 +514,8 @@ def _rows_superstep(f, v, spare, Bp, bwd, subj, pred, obj, stamp, flag0):
     nxt = torch.zeros_like(t[0])
     flag = torch.full((1,), flag0, dtype=torch.int32)
     tops.packed_superstep(t[0], t[1], nxt, t[2], flag, stamp, t[3], t[4],
-                          *(torch.from_numpy(a) for a in (subj, pred, obj)))
+                          *_grouped(subj, pred, obj, f.shape[1],
+                                    Bp.shape[1] - 1, rows=f.shape[0]))
     return [tops.tensor_to_words(a) for a in (t[0], t[1], nxt, t[2])] + \
         [int(flag[0])]
 
@@ -544,13 +574,15 @@ def test_packed_superstep_rows_match_reference_bfs_hetero():
     the port's loop (``dense.bfs_rows``) reaches the same visited planes
     in the same supersteps."""
     from repro.core.dense import _bfs_chunk_hetero, _bfs_hetero
-    from repro_torch.core.dense import bfs_rows
+    from repro_torch.core.dense import Edges, bfs_rows
     g = random_graph(30, 3, 110, seed=12, pred_zipf=False)
     exprs = ["0/1*", "(0|2)+/^1", "2", "0/1/2/0/1*/2"]
     dg, B, PRED, planes, jnp = _reference_hetero(g, exprs, [0, 3, 7, 11])
     S_pad = planes.shape[2]
     ids = [torch.from_numpy(np.array(a)) for a in (dg.subj, dg.pred,
                                                     dg.obj)]
+    edges = Edges.build(*ids, g.num_nodes, dg.num_labels)
+    scratch = tsup.new_scratch(edges.grouped, len(exprs))
     Bp, Pp = (tops.words_to_tensor(tops.pack_bits(a), "cpu")
               for a in (B, PRED))
     f = v = jnp.asarray(planes)
@@ -564,7 +596,7 @@ def test_packed_superstep_rows_match_reference_bfs_hetero():
         nxt = torch.zeros_like(pf)
         flag = torch.full((1,), steps, dtype=torch.int32)
         tops.packed_superstep(pf, pv, nxt, torch.zeros_like(pf), flag,
-                              steps + 1, Bp, Pp, *ids)
+                              steps + 1, Bp, Pp, edges.grouped, scratch)
         steps += int(its)
         np.testing.assert_array_equal(
             tops.unpack_bits(tops.tensor_to_words(nxt), S_pad), np.asarray(f))
@@ -577,12 +609,12 @@ def test_packed_superstep_rows_match_reference_bfs_hetero():
                        jnp.asarray(PRED), jnp.asarray(planes), g.num_nodes,
                        g.num_nodes * S_pad + 1)
     start = tops.words_to_tensor(tops.pack_bits(planes), "cpu")
-    vis, front, it = bfs_rows(tuple(ids), Bp, Pp, start,
+    vis, front, it = bfs_rows(edges, Bp, Pp, start,
                               g.num_nodes * S_pad + 1)
     np.testing.assert_array_equal(
         tops.unpack_bits(tops.tensor_to_words(vis), S_pad), np.asarray(want))
     assert it == steps > 3 and not bool(front.any())
     for cap in (1, 2, steps - 1):
-        _vis, front, it = bfs_rows(tuple(ids), Bp, Pp, tops.words_to_tensor(
+        _vis, front, it = bfs_rows(edges, Bp, Pp, tops.words_to_tensor(
             tops.pack_bits(planes), "cpu"), cap)
         assert it == cap and bool(front.any())

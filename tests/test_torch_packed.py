@@ -108,7 +108,7 @@ def test_dense_graph_arrays_match_reference():
         got = DenseGraph.from_graph(convert.graph_from_reference(g),
                                     device="cpu")
         for name in ("subj", "pred", "obj"):
-            t = getattr(got, name)
+            t = getattr(got.edges, name)
             assert t.dtype == torch.int32 and t.device.type == "cpu"
             np.testing.assert_array_equal(t.numpy(),
                                           np.asarray(getattr(want, name)))
@@ -149,9 +149,11 @@ def test_packed_bfs_on_step_sees_every_superstep():
         assert not bool((frontier & visited).any())
         if want_next:
             assert torch.equal(frontier, want_next.pop())
-        X = frontier.index_select(0, dg.obj) & Bp.index_select(0, dg.pred)
+        X = frontier.index_select(0, dg.edges.obj) & \
+            Bp.index_select(0, dg.edges.pred)
         Y = nfa_step_ref(X, bwd)
-        want_next.append(segment_or_ref(Y, dg.subj, V) & ~(visited | frontier))
+        want_next.append(segment_or_ref(Y, dg.edges.subj, V) &
+                         ~(visited | frontier))
         seen.append(int((Y != 0).sum()))
 
     vis, it = packed_bfs(dg, pg, [0], on_step=hook)
