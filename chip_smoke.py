@@ -30,8 +30,9 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      engine with the kernel's plain version, and the answers a host run
      with scalar tables; a profiled rerun gives the card's busy share;
      the line names the layout of the batch's ``nfa_step`` launch;
-     two of the hub closures left out of the batch are timed under a
-     1 s deadline, to show how far past it they run;
+     two of the hub closures left out of the batch run on the card under
+     a 1 s deadline, and each ``TimeoutError`` must come within
+     ``serve.OVERRUN_BOUND_S`` of it;
   3. serving: a ``SlotScheduler`` over a CUDA engine on the same ring,
      launching the kernel from one task up, answers 16 requests admitted
      one at a time with a live ``add_edges`` in between; each answer
@@ -75,16 +76,28 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      them; the dense engine on a 2 x 2 data x model mesh on a subset;
      phase 7's statistics and overlay saved with
      ``repro_torch.checkpoint``, restored onto the card and loaded into
-     a new 4-shard engine.  Every answer equals phases 2, 5 and 7.
+     a new 4-shard engine.  Every answer equals phases 2, 5 and 7;
+  9. serving front: ``repro_torch.serve`` (``AsyncServer`` over a
+     ``SlotScheduler`` of 64 slots, a closed-loop client with 64
+     requests in flight, phase 3's live ``add_edges`` after half are
+     submitted, ``/metrics``, ``/flight`` and ``/explain`` scraped over
+     HTTP) on every request phase 2 tried, hub closures included, on (a)
+     the ring under a 1 s deadline (each timeout settles within
+     ``serve.OVERRUN_BOUND_S`` of it), (b) the dense engine and (c) the
+     dense engine on a mesh of 4 x the card under 60 s (no timeout); every
+     ``ok`` answer equals ``eval_many`` at its ticket's epoch, and each
+     run's ``/flight`` capture replays on a fresh engine with count
+     parity 1.0.
 
-Each of phases 2-8 sets the launch counts to 0 just before its path and
-prints them just after.
+Each of phases 2-9 sets the launch counts to 0 just before its path (in
+phase 9, before each run) and prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
 times at its path's largest launch, the heaviest superstep for
 ``packed_superstep`` and ``segment_or``; for ``nfa_step`` and
-``packed_superstep`` also a shard's launch on the mesh, and for
-``packed_superstep`` the dense path's heaviest R = 16 launch)
+``packed_superstep`` also a shard's launch on the mesh, for
+``packed_superstep`` the dense path's heaviest R = 16 launch, and for
+``nfa_step`` the serving ring's largest launch)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -159,7 +172,7 @@ SCAN_CAP = 2_000                     # triples one probe superstep may scan
 # skipped hub closures rerun under a short deadline, to time its overrun
 OVERRUN_PROBES = 2
 OVERRUN_DEADLINE_S = 1.0
-OVERRUN_CAP_S = 60.0
+OVERRUN_CAP_S = 60.0          # a safety net: a probe that reaches it fails
 
 
 def emit(obj) -> None:
@@ -862,11 +875,13 @@ def select_requests(host, graph, count: int, scan_cap: int,
         "seconds": time.perf_counter() - t0}
 
 
-def deadline_overrun(host, queries, deadline_s: float, cap_s: float):
-    """Seconds each of ``queries`` takes on ``host``'s ring under a
-    ``deadline_s`` per-query deadline: how far past it the
-    ``TimeoutError`` comes.  A ``SIGALRM`` stops a probe at ``cap_s``
-    (status "capped")."""
+def deadline_overrun(ring, stats, queries, deadline_s: float, cap_s: float,
+                     bound_s: float):
+    """Seconds each of ``queries`` takes on a card engine over ``ring``
+    under a ``deadline_s`` per-query deadline: how far past it the
+    ``TimeoutError`` comes.  Each must come within ``bound_s`` of the
+    deadline.  A ``SIGALRM`` stops a probe at ``cap_s`` (status
+    "capped"), which fails too."""
     import signal
     from repro_torch.core.rpq import RingRPQ
 
@@ -880,7 +895,7 @@ def deadline_overrun(host, queries, deadline_s: float, cap_s: float):
     previous = signal.signal(signal.SIGALRM, on_alarm)
     try:
         for q in queries:
-            engine = RingRPQ(host.ring, device="cpu", stats=host.graph_stats)
+            engine = RingRPQ(ring, device="cuda", stats=stats)
             status = "capped"
             t0 = time.perf_counter()
             try:
@@ -900,7 +915,13 @@ def deadline_overrun(host, queries, deadline_s: float, cap_s: float):
                         "seconds": time.perf_counter() - t0})
     finally:
         signal.signal(signal.SIGALRM, previous)
-    return {"deadline_s": deadline_s, "cap_s": cap_s, "probes": out}
+    for p in out:
+        if p["status"] == "capped" or p["seconds"] > deadline_s + bound_s:
+            fail(f"a {deadline_s} s deadline on hub closure {p['query']} "
+                 f"ended after {p['seconds']:.3f} s ({p['status']}), more "
+                 f"than {bound_s} s past it")
+    return {"deadline_s": deadline_s, "cap_s": cap_s, "bound_s": bound_s,
+            "probes": out}
 
 
 def run_main_path(graph, device: str, count: int, deadline_s: float,
@@ -956,8 +977,12 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
     task_counts = [k[1] for k in engine.traces.signatures
                    if k[0] == "nfa_step"]
     busy = device_busy(engine.ring, device, queries, deadline_s)
-    overrun = deadline_overrun(host, skipped[:OVERRUN_PROBES],
-                               OVERRUN_DEADLINE_S, OVERRUN_CAP_S)
+    # how far past its deadline a timed-out ring request may settle: these
+    # probes and phase 9 (a) fail beyond it (PERF.md §6)
+    from repro_torch.serve import OVERRUN_BOUND_S
+    overrun = deadline_overrun(engine.ring, engine.graph_stats,
+                               skipped[:OVERRUN_PROBES], OVERRUN_DEADLINE_S,
+                               OVERRUN_CAP_S, OVERRUN_BOUND_S)
     report = {
         "graph": {"nodes": graph.num_nodes, "preds": graph.num_preds,
                   "edges": int(graph.s.size),
@@ -1001,14 +1026,6 @@ def device_busy(ring, device, queries, deadline_s):
 
 
 # -- phase 3 -----------------------------------------------------------------
-def live_adds(V: int, P: int, seed: int = 5):
-    """The 16 edges the serving phases add while slots are in flight."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    return [(int(rng.integers(V)), int(rng.integers(min(P, 4))),
-             int(rng.integers(V))) for _ in range(16)]
-
-
 def phase_serving(ring, queries, answers_epoch0, adds):
     """A ``SlotScheduler`` over a CUDA engine on the main path's ring.
     The engine launches the kernel from one task up: at the default 64,
@@ -2027,6 +2044,169 @@ def record_dense_launch(engine, queries, capture: dict) -> dict:
             "heaviest_transition_words": capture["dense_superstep_live"]}
 
 
+# -- phase 9 -----------------------------------------------------------------
+SERVE_SLOTS = 64             # max_slots, and the requests the client keeps out
+# the ring's per-request deadline, cut from the paper's 60 s: a hub closure
+# does not finish on the ring in 17 s, and 605 of them at 60 s do not fit
+RING_SERVE_DEADLINE_S = 1.0
+
+
+def _stats_copy(stats):
+    """A private copy: a live update refreshes an engine's statistics in
+    place, and each engine here takes its own update."""
+    from repro_torch.core.stats import GraphStats
+    return GraphStats.from_state(stats.to_state())
+
+
+def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
+                        skipped, hub_answers, capture):
+    """The serving front (``repro_torch.serve``) on phase 2's graph and
+    the ``tried`` requests phase 2 tried, in workload order (its 2,048
+    and the hub closures it left out): ``AsyncServer`` over a
+    ``SlotScheduler`` of 64 slots, a closed-loop client with 64 in
+    flight, 16 edges added after half are submitted, ``/metrics``,
+    ``/flight`` and ``/explain`` scraped over HTTP; on (a) the ring under
+    a 1 s deadline, every timeout settling within
+    ``serve.OVERRUN_BOUND_S`` of its deadline, (b) the dense engine and
+    (c) the dense engine on a mesh of 4 x the card under 60 s, with no
+    timeout.  Every ``ok`` answer equals ``eval_many`` at its ticket's
+    epoch: phases 2, 5 and 7 at epoch 0, and at epoch 1 a fresh dense
+    engine with the update applied, on which (b)'s ``/flight`` capture
+    replays first; (a)'s and (c)'s replay on fresh engines of their own
+    (a ring, a 4-shard dense engine), each with count parity 1.0.  Each
+    run resets the launch counts just before it serves and reads them
+    just after; (a) keeps its largest ``nfa_step`` launch in
+    ``capture`` for the kernels line."""
+    import gc
+    from repro_torch import kernels, serve
+    from repro_torch.core.engines import make_engine
+    from repro_torch.core.rpq import RingRPQ
+    from repro_torch.kernels import ops as kops
+    gc.freeze()       # the earlier phases' answers live on: never walk them
+    t_phase = time.perf_counter()
+    reqs = serve.one_endpoint_requests(graph, tried)
+
+    def key(q):
+        return (q.expr, q.subject, q.obj)
+
+    epoch0 = {key(q): a for q, a in zip(queries, answers)}
+    epoch0.update((key(q), a) for q, a in zip(skipped, hub_answers))
+    if len(reqs) != tried or any(key(q) not in epoch0 for q in reqs):
+        fail("phase 9's requests are not the ones phase 2 tried")
+    epoch0 = [epoch0[key(q)] for q in reqs]
+    hubs = {key(q) for q in skipped}
+    classes = {"hub": [i for i, q in enumerate(reqs) if key(q) in hubs]}
+    classes["regular"] = [i for i, q in enumerate(reqs) if key(q) not in hubs]
+    adds = serve.live_adds(graph.num_nodes, graph.num_preds)
+    mesh = _card_mesh((MESH_SHARDS,), ("data",))
+    builds = {"ring": lambda: RingRPQ(ring, device="cuda",
+                                      stats=_stats_copy(stats)),
+              "dense": lambda: make_engine(graph, kind="dense",
+                                           stats=_stats_copy(stats)),
+              "mesh": lambda: make_engine(graph, kind="dense", mesh=mesh,
+                                          stats=_stats_copy(stats))}
+    out = {"phase": "serving_front", "requests": len(reqs),
+           "hub_requests": len(classes["hub"]), "slots": SERVE_SLOTS,
+           "concurrency": SERVE_SLOTS, "live_adds": len(adds),
+           "overrun_bound_s": serve.OVERRUN_BOUND_S}
+
+    def serve_run(name, deadline_s):
+        engine = builds[name]()
+        kernels.reset_launch_counts()
+        run = serve.run(engine, reqs, slots=SERVE_SLOTS,
+                        concurrency=SERVE_SLOTS, deadline_s=deadline_s,
+                        adds=adds)
+        launches = kernels.launch_counts()
+        if run["update_epoch"] != 1:
+            fail(f"{name}: the live update made epoch {run['update_epoch']}")
+        report = serve.latency_summary(run, classes)
+        report.update(deadline_s=deadline_s, kernel_launches=launches)
+        if set(report["ok_by_epoch"]) != {"0", "1"}:
+            fail(f"{name}: answers at epochs {report['ok_by_epoch']}, not "
+                 f"both sides of the live update")
+        bad = {t: st for t, st in report["http"].items() if st != 200}
+        if bad:
+            fail(f"{name}: endpoints answered {bad}")
+        if name == "mesh":
+            sh = engine.sharded
+            if sh.slot_dispatches <= 0:
+                fail("the mesh's slots did not step on the mesh")
+            report["mesh"] = {"shards": sh.num_shards,
+                              "slot_dispatches": sh.slot_dispatches,
+                              "gather_bytes": sh.gather_bytes}
+        out[name] = report
+        return run
+
+    def replay(name, run, engine):
+        engine.add_edges(adds)
+        out[name]["flight"] = serve.replay(run["scraped"]["/flight"][1],
+                                           engine)
+        if out[name]["flight"]["parity"] != 1.0:
+            fail(f"{name}: /flight replay parity "
+                 f"{out[name]['flight']['parity']}")
+
+    def check(name, run):
+        """Hold the run's ok answers to eval_many at their epochs; epoch
+        1 from ``yardstick`` (its answers to (b)'s replay are cached)."""
+        idx = sorted({o.index for o in run["outcomes"]
+                      if o.ok and o.epoch == 1})
+        t0 = time.perf_counter()
+        want = {0: epoch0, 1: dict(zip(idx, yardstick.eval_many(
+            [reqs[i] for i in idx])))}
+        try:
+            checked = serve.check_answers(run["outcomes"], reqs, want)
+        except AssertionError as e:
+            fail(f"{name}: {e}")
+        out[name].update(answers_equal_eval_many=checked,
+                         epoch_1_eval_many_s=time.perf_counter() - t0)
+
+    # (a) the ring, its largest nfa_step launch kept for the kernels line
+    original = kops.nfa_step
+
+    def recording(X, bwd):
+        if X.shape[0] > capture.get("serve_N", -1):
+            capture.update(serve_N=X.shape[0], serve_X=X, serve_bwd=bwd)
+        return original(X, bwd)
+
+    kops.nfa_step = recording
+    try:
+        ring_run = serve_run("ring", RING_SERVE_DEADLINE_S)
+    finally:
+        kops.nfa_step = original
+    ring_report = out["ring"]
+    ring_report["largest_nfa_step_tasks"] = capture.get("serve_N")
+    emit({"phase": "serving_front_ring", **ring_report})   # before its gates
+    if not ring_report["kernel_launches"]["nfa_step"]:
+        fail("the ring's serving front launched no nfa_step")
+    over = ring_report["max_overrun_s"]
+    if over is not None and over > serve.OVERRUN_BOUND_S:
+        fail(f"a ring request settled {over:.3f} s past its deadline, "
+             f"more than {serve.OVERRUN_BOUND_S} s")
+    replay("ring", ring_run, builds["ring"]())
+
+    # (b) the dense engine: its capture replays on the epoch-1 yardstick
+    run = serve_run("dense", BATCH_DEADLINE_S)
+    yardstick = builds["dense"]()
+    replay("dense", run, yardstick)
+    check("dense", run)
+    check("ring", ring_run)
+    del run, ring_run
+
+    # (c) the dense engine on the mesh
+    run = serve_run("mesh", BATCH_DEADLINE_S)
+    check("mesh", run)
+    replay("mesh", run, builds["mesh"]())
+    del run, yardstick
+    for name in ("dense", "mesh"):
+        check_packed_launches(out[name]["kernel_launches"],
+                              f"the {name} serving front")
+        if out[name]["timeouts"]:
+            fail(f"{out[name]['timeouts']} requests timed out on the "
+                 f"{name} serving front at {BATCH_DEADLINE_S} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -2056,7 +2236,8 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     ``packed_superstep`` took its place) on that superstep's values, the
     rank kernels at phase 6's largest level, ``segmented_or_scan`` (on no
     path) at phase 1's full size.  ``shard``: ``nfa_step`` at phase 8's
-    largest shard launch, ``packed_superstep`` at phase 8 (b)'s heaviest
+    largest shard launch (and ``serving``: at phase 9 (a)'s largest
+    launch), ``packed_superstep`` at phase 8 (b)'s heaviest
     shard launch (R = 16 rows, the shard's local state and edges, the
     gathered frontier; ``record_shard_launch``), each with its launches
     on the mesh path.  ``dense``: ``packed_superstep`` at phase 7's
@@ -2121,6 +2302,8 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     rows = capture["rows"]
     sX, sbwd = capture["shard_X"], capture["shard_bwd"]
     shard_nfa_bound = nfa_bound(sX, sbwd.shape[0])
+    vX, vbwd = capture["serve_X"], capture["serve_bwd"]
+    serve_nfa_bound = nfa_bound(vX, vbwd.shape[0])
     shard_args, gathered = capture["shard_superstep"]
     shard_shape = {"shard": capture["shard_of"], "shards": MESH_SHARDS,
                    "R": int(gathered.shape[0]),
@@ -2146,7 +2329,18 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                                        ref.nfa_step_ref, (sX, sbwd),
                                        "the mesh's largest shard launch"),
                       "bound_ms": shard_nfa_bound[0],
-                      "bound_by": shard_nfa_bound[1]}},
+                      "bound_by": shard_nfa_bound[1]},
+            "serving": {"launches": nfa_paths["serving_ring"],
+                        "N": int(vX.shape[0]), "S": int(vbwd.shape[0]),
+                        "W": int(vX.shape[1]),
+                        "layout": knfa.layout(vX.shape[1]),
+                        **check_and_time(errs, "nfa_step",
+                                         knfa.nfa_step_cuda,
+                                         ref.nfa_step_ref, (vX, vbwd),
+                                         "the serving ring's largest "
+                                         "launch"),
+                        "bound_ms": serve_nfa_bound[0],
+                        "bound_by": serve_nfa_bound[1]}},
         "packed_superstep": {
             "launches_by_path": superstep_paths,
             "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
@@ -2214,6 +2408,7 @@ def main() -> int:
     emit({"phase": "main_path", **report})
     if report["kernel_launches"] <= 0:
         fail("the main path launched no nfa_step kernel")
+    from repro_torch.serve import live_adds     # the serving phases' edges
     adds = live_adds(graph.num_nodes, graph.num_preds)
     emit(phase_serving(engine.ring, queries, answers, adds))
     emit(phase_oracle("cuda"))
@@ -2230,19 +2425,30 @@ def main() -> int:
     mesh = phase_mesh(graph, engine.ring, dense_engine.graph_stats, stats_s,
                       queries, answers, skipped, hub_answers, dense_engine,
                       capture)
-    del hub_answers, dense_engine
     emit(mesh)
+    front = phase_serving_front(
+        graph, engine.ring, dense_engine.graph_stats,
+        report["selection"]["tried"], queries, answers, skipped,
+        hub_answers, capture)
+    del hub_answers, dense_engine
+    emit(front)
+    served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
+                                                       "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],
              "dense": dense["kernel_launches"]["packed_superstep"],
-             "mesh": mesh["kernel_launches"]["packed_superstep"]}
+             "mesh": mesh["kernel_launches"]["packed_superstep"],
+             "serving_dense": served["dense"]["packed_superstep"],
+             "serving_mesh": served["mesh"]["packed_superstep"]}
     nfa_paths = {"ring": report["kernel_launches"],
-                 "mesh": mesh["kernel_launches"]["nfa_step"]}
+                 "mesh": mesh["kernel_launches"]["nfa_step"],
+                 "serving_ring": served["ring"]["nfa_step"]}
     kernels = kernels_line(capture, {
         "nfa_step": sum(nfa_paths.values()),
         "packed_superstep": sum(paths.values()),
         "segment_or": packed["kernel_launches"]["segment_or"] +
         dense["kernel_launches"]["segment_or"] +
-        mesh["kernel_launches"]["segment_or"],
+        mesh["kernel_launches"]["segment_or"] +
+        sum(v["segment_or"] for v in served.values()),
         **rank["kernel_launches"]}, errs, paths, nfa_paths)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(kernels)                      # the line before the last

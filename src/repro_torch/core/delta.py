@@ -502,6 +502,16 @@ class LiveUpdateEngine:
     def _overlay_created(self) -> None:
         pass
 
+    def prepare_updates(self) -> None:
+        """Build now what the first mutation batch would build first: the
+        (empty) overlay over the base and the base's predicate-major
+        edge arrays.  A server calls it at start-up, so that its first
+        write does not stall every request in flight for the seconds
+        this takes on millions of triples.  Changes no answer, cache or
+        epoch."""
+        self._ensure_overlay()
+        self._pred_edges_base(0)
+
     def add_edges(self, triples) -> int:
         """Insert raw (s, p, o) edges (ids within the base dictionaries).
         Exact immediately: queries at the returned epoch see the new

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -990,11 +991,13 @@ class DenseRPQ(dl.LiveUpdateEngine):
             if q.subject is None:                          # (x, E, o)
                 if null:
                     out.add((q.obj, q.obj))
-                out.update((int(s), q.obj) for s in np.nonzero(hits[bi])[0])
+                out.update(zip(np.nonzero(hits[bi])[0].tolist(),
+                               repeat(q.obj)))
             elif q.obj is None:                            # (s, E, y)
                 if null:
                     out.add((q.subject, q.subject))
-                out.update((q.subject, int(o)) for o in np.nonzero(hits[bi])[0])
+                out.update(zip(repeat(q.subject),
+                               np.nonzero(hits[bi])[0].tolist()))
             else:                                          # (s, E, o)
                 hit = hits[bi][q.obj] if mode == "reverse" \
                     else hits[bi][q.subject]
@@ -1010,16 +1013,18 @@ class _DenseSlot:
     """One in-flight dense BFS under continuous batching: its own
     frontier/visited words on the engine's device between ticks, pinned
     to the :class:`Edges` epoch (arrays and grouped layout) of its
-    admission."""
+    admission and, on a sharded engine, to that epoch's shards (the
+    executor's per-shard ``Edges`` rows)."""
 
-    __slots__ = ("plan", "start", "edges", "S_pad", "frontier", "visited",
-                 "active")
+    __slots__ = ("plan", "start", "edges", "shards", "S_pad", "frontier",
+                 "visited", "active", "seen", "reported")
 
     def __init__(self, plan: _DensePlan, start: int, edges: Edges,
-                 S_pad: int, num_nodes: int, device):
+                 S_pad: int, num_nodes: int, device, shards=None):
         self.plan = plan
         self.start = start
         self.edges = edges
+        self.shards = shards
         self.S_pad = S_pad
         words = torch.zeros((num_nodes, (S_pad + 31) // 32),
                             dtype=torch.int32, device=device)
@@ -1030,6 +1035,9 @@ class _DenseSlot:
                 _start_row(plan.g), device)
         self.frontier = words
         self.visited = words.clone()
+        # the nodes reported so far, on the device and as a set
+        self.seen = torch.zeros(num_nodes, dtype=torch.bool, device=device)
+        self.reported: Set[int] = set()
 
 
 class DenseStepper:
@@ -1040,10 +1048,12 @@ class DenseStepper:
     Each :meth:`step` advances every active slot by up to
     ``steps_per_tick`` supersteps.  Slots are grouped by (edge-array
     snapshot, padded state width) and each group dispatches ONE
-    :func:`bfs_rows` with the group's row count padded to a power of two
-    (min 4), so continuous admission/retirement reuses a bounded set of
-    launch shapes.  The initial-state bit of ``visited`` only ever grows,
-    which makes incremental result streaming sound.
+    :func:`bfs_rows` — on a sharded engine one
+    ``ShardedDenseExec.step_rows`` over the mesh — with the group's row
+    count padded to a power of two (min 4), so continuous
+    admission/retirement reuses a bounded set of launch shapes.  The
+    initial-state bit of ``visited`` only ever grows, which makes
+    incremental result streaming sound.
 
     Version snapshots: ``add_job`` pins the :class:`Edges` epoch (the
     arrays and their grouped layout) the slot's BFS reads.
@@ -1067,9 +1077,12 @@ class DenseStepper:
         engine's current epoch."""
         eng = self.eng
         edges = edges if edges is not None else eng._edges()
+        # the executor re-partitions on every mutation into new rows, so
+        # the current ones are this epoch's for as long as the slot lives
+        shards = eng.sharded._edges if eng.sharded is not None else None
         slot = _DenseSlot(plan, int(start), edges,
                           eng._pad_width(plan.g.m + 1),
-                          eng.graph.num_nodes, eng.device)
+                          eng.graph.num_nodes, eng.device, shards)
         self.slots.append(slot)
         return slot
 
@@ -1085,9 +1098,14 @@ class DenseStepper:
 
     def reported(self, slot: _DenseSlot) -> Set[int]:
         """Nodes whose initial-state bit has activated so far —
-        monotone, so callers stream the set difference per tick."""
-        hit = (slot.visited[:, 0] & 1).nonzero().reshape(-1)
-        return set(hit.cpu().tolist())
+        monotone, so callers stream the set difference per tick.  Only
+        the nodes new since the last call cross to the host."""
+        bit = (slot.visited[:, 0] & 1).bool()
+        fresh = (bit & ~slot.seen).nonzero().reshape(-1)
+        if fresh.numel():
+            slot.seen |= bit
+            slot.reported.update(fresh.cpu().tolist())
+        return slot.reported
 
     # -- one tick -----------------------------------------------------------
     def step(self) -> bool:
@@ -1114,10 +1132,16 @@ class DenseStepper:
                 front = torch.stack([s.frontier for s in members] + pad)
                 vis = torch.stack([s.visited for s in members] + pad)
                 eng.traces.record("bfs_chunk_hetero", C, S_pad)
-                v, f, it = bfs_rows(
-                    members[0].edges, Bstk, PREDstk, front,
-                    self.steps_per_tick, visited=vis,
-                    span={"rows": C, "width": S_pad, "live": len(members)})
+                if eng._use_sharded():
+                    v, f, it = eng.sharded.step_rows(
+                        Bstk, PREDstk, front, self.steps_per_tick, vis,
+                        members[0].shards)
+                else:
+                    v, f, it = bfs_rows(
+                        members[0].edges, Bstk, PREDstk, front,
+                        self.steps_per_tick, visited=vis,
+                        span={"rows": C, "width": S_pad,
+                              "live": len(members)})
                 eng.hetero_dispatches += 1
                 eng._superstep_acc += it
                 alive = f.reshape(C, -1).any(dim=1).tolist()

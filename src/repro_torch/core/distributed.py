@@ -244,11 +244,12 @@ class _Replica:
     __slots__ = ("k", "j", "device", "bufs", "v", "edges", "scratch")
 
     def __init__(self, k: int, j: int, device, start: torch.Tensor,
-                 edges: Edges):
+                 edges: Edges, visited: Optional[torch.Tensor] = None):
         self.k, self.j, self.device, self.edges = k, j, device, edges
         f = start.to(device, copy=True).contiguous()
         self.bufs = [f, torch.zeros_like(f), torch.zeros_like(f)]
-        self.v = torch.zeros_like(f)
+        self.v = torch.zeros_like(f) if visited is None \
+            else visited.to(device, copy=True).contiguous()
         self.scratch = new_scratch(edges.grouped, f.shape[0])
 
 
@@ -308,10 +309,13 @@ class ShardedDenseExec:
     ``dense.bfs_rows``: it reads the flags once a chunk, which is also
     where per-query/batch deadlines are enforced (``TimeoutError``, the
     same signal the ring engine raises).
-    ``run_rows`` is the single entry point: row r of the batch runs its
-    own tables, so the same loop serves the single-plan, multi-source and
-    heterogeneous ``eval_many`` shapes.  ``gather_bytes`` counts the
-    bytes the all-gathers copied.
+    ``run_rows`` is the single entry point of ``eval``/``eval_many``:
+    row r of the batch runs its own tables, so the same loop serves the
+    single-plan, multi-source and heterogeneous shapes.  ``step_rows``
+    is the slot scheduler's: a few supersteps of its slots' rows from
+    their frontier and visited words, over the edge shards of their
+    epoch (``slot_dispatches`` counts them apart from ``dispatches``).
+    ``gather_bytes`` counts the bytes the all-gathers copied.
     """
 
     def __init__(self, dg, mesh: Mesh,
@@ -327,6 +331,7 @@ class ShardedDenseExec:
         self.dispatches = 0      # sharded superstep-loop launches
         self.supersteps = 0      # total supersteps across all launches
         self.edge_refreshes = 0  # live-update edge re-partitions
+        self.slot_dispatches = 0  # step_rows calls (slot scheduler ticks)
         self.gather_bytes = 0    # bytes copied by the frontier all-gathers
         self._table_cache: dict = {}  # table_key -> {device: (B, PRED)}
         self.shard_devices = shard_devices(mesh, self.data_axes, model_axis)
@@ -408,19 +413,41 @@ class ShardedDenseExec:
         object itself) memoizes the tables' device copies so repeated
         runs of the same plan stack skip the transfer.
         """
+        self.dispatches += 1
+        visited, _frontier, it = self._run(Bstk, PREDstk, start, max_steps,
+                                           deadline, table_key)
+        self.supersteps += it
+        return visited, it
+
+    def step_rows(self, Bstk: torch.Tensor, PREDstk: torch.Tensor,
+                  frontier: torch.Tensor, max_steps: int,
+                  visited: torch.Tensor, edges
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Up to ``max_steps`` supersteps of R slot rows from their
+        ``frontier`` and ``visited`` [R, V, W] words over ``edges`` (the
+        per-shard rows of the slots' epoch): ``dense.bfs_rows``'s
+        contract — (visited with the frontier, frontier, supersteps)."""
+        self.slot_dispatches += 1
+        return self._run(Bstk, PREDstk, frontier, max_steps, None, None,
+                         visited, edges)
+
+    def _run(self, Bstk, PREDstk, start, max_steps, deadline, table_key,
+             visited=None, edges=None):
         words = self.pad_nodes(start)
         R, Vp, W = words.shape
         Vl = self.sg.nodes_per_shard
+        edges = self._edges if edges is None else edges
+        seen = None if visited is None else self.pad_nodes(visited)
         tables = self._tables(Bstk, PREDstk, table_key)
         replicas = [_Replica(k, j, dev, words[:, k * Vl:(k + 1) * Vl],
-                             self._edges[k][j])
+                             edges[k][j], None if seen is None
+                             else seen[:, k * Vl:(k + 1) * Vl])
                     for k, row in enumerate(self.shard_devices)
                     for j, dev in enumerate(row)]
         gathered = {d: torch.empty((R, Vp, W), dtype=torch.int32, device=d)
                     for d in self.devices}
         flags = {d: torch.zeros(1, dtype=torch.int32, device=d)
                  for d in self.devices}
-        self.dispatches += 1
 
         def chunk(it: int, k: int) -> int:
             with otrace.span("dense.sharded_chunk", cat="kernel", steps=k,
@@ -432,7 +459,9 @@ class ShardedDenseExec:
 
         it = superstep_loop(chunk, max_steps if bool(words.any()) else 0,
                             deadline)
-        self.supersteps += it
-        visited = torch.cat([(r.v | r.bufs[it % 3]).to(start.device)
-                             for r in replicas if r.j == 0], dim=1)
-        return visited[:, : self.num_nodes], it
+        owners = [r for r in replicas if r.j == 0]
+        frontier = torch.cat([r.bufs[it % 3].to(start.device)
+                              for r in owners], dim=1)
+        visited = torch.cat([r.v.to(start.device) for r in owners], dim=1)
+        V = self.num_nodes
+        return (visited | frontier)[:, :V], frontier[:, :V], it

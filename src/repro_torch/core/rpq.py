@@ -76,9 +76,10 @@ for comparison.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -96,6 +97,11 @@ from .ring import Ring
 from .stats import GraphStats
 
 __all__ = ["QueryStats", "RingRPQ"]  # QueryStats re-exported (engines.py)
+
+# wavelet-tree pops of a superstep between two deadline checks
+PROBE_EVERY = 64
+# part-1.5 tasks between two deadline checks while slots carry deadlines
+TRANSITION_SLICE = 4096
 
 
 _isin = qp.isin_mask
@@ -164,6 +170,9 @@ class _Job:
     reported: Set[int] = field(default_factory=set)
     ring: Optional[Ring] = None         # version snapshot (see above)
     ov: Optional[dl.DeltaOverlay] = None
+    # absolute deadline on the stepper's clock (slot scheduler only):
+    # past it the job stops inside a superstep (RingStepper.take_expired)
+    deadline: Optional[float] = None
 
 
 class RingRPQ(dl.LiveUpdateEngine):
@@ -937,11 +946,13 @@ class RingRPQ(dl.LiveUpdateEngine):
         self._traverse_many([job], deadline=getattr(self, "_deadline", None))
         return job.reported
 
-    def make_stepper(self) -> "RingStepper":
+    def make_stepper(self, clock: Optional[Callable[[], float]] = None
+                     ) -> "RingStepper":
         """A continuously-batchable superstep executor over this engine
         — the slot scheduler's entry point (see
-        :mod:`repro_torch.core.scheduler`)."""
-        return RingStepper(self)
+        :mod:`repro_torch.core.scheduler`); ``clock`` reads the jobs'
+        deadlines (default ``time.monotonic``)."""
+        return RingStepper(self, clock=clock)
 
     def _traverse_many(self, jobs: List[_Job],
                        deadline: Optional[float] = None) -> None:
@@ -989,10 +1000,30 @@ class RingStepper:
     at different epochs traverse different graph versions while still
     sharing every part-1.5 transition batch — the merged task list only
     carries state masks, never graph data.
+
+    Deadlines.  :meth:`step`'s ``deadline`` (absolute ``time.time()``,
+    the ``eval``/``eval_many`` budget) raises ``TimeoutError`` from
+    inside the superstep: every 64 frontier entries of part 1 and every
+    :data:`PROBE_EVERY` wavelet-tree pops of the superstep (parts 1 and
+    2 together).  A job's own ``deadline`` (absolute, on ``clock``: the
+    slot scheduler's) is checked at the same points and, while any job
+    carries one, between slices of :data:`TRANSITION_SLICE` part-1.5
+    tasks (each slice its own transition batch, so ``kernel_batches``
+    counts slices there).  Past it the job is marked done, and the
+    superstep *pauses*: :meth:`step` returns, the caller collects
+    the expired jobs (:meth:`take_expired`), and the next :meth:`step`
+    resumes the superstep exactly where it stopped — mid-enumeration
+    included — for the other jobs.  An expired job reports nothing
+    further; its half-written ``Dv`` is its own and never read again.
+    The probes touch no ``QueryStats`` field.
     """
 
-    def __init__(self, rpq: RingRPQ):
+    def __init__(self, rpq: RingRPQ,
+                 clock: Optional[Callable[[], float]] = None):
         self.rpq = rpq
+        self.clock = clock if clock is not None else time.monotonic
+        self.expired: List[_Job] = []   # expired jobs not yet collected
+        self._superstep = None          # the paused superstep (a generator)
         self.bundle = PlanBundle.empty()
         self.jobs: List[_Job] = []
         # entries: (job, object id | None for the full range, D) — the
@@ -1031,9 +1062,21 @@ class RingStepper:
             self._push(job, job.start_obj, D0)
 
     def finished(self, job: _Job) -> bool:
-        """Done flag (target hit / empty automaton) or a drained
-        frontier — either way the job's ``reported`` set is final."""
-        return job.done or self._pending.get(id(job), 0) == 0
+        """Done flag (target hit / empty automaton / expired) or a
+        drained frontier outside a superstep — either way the job's
+        ``reported`` set is final."""
+        return job.done or (self._superstep is None
+                            and self._pending.get(id(job), 0) == 0)
+
+    @property
+    def in_superstep(self) -> bool:
+        """True while a superstep is paused (see the class docstring)."""
+        return self._superstep is not None
+
+    def take_expired(self) -> List[_Job]:
+        """The jobs that expired inside supersteps since the last call."""
+        out, self.expired = self.expired, []
+        return out
 
     def remove_job(self, job: _Job) -> None:
         """Retire ``job`` (finished or preempted): free its bundle slot
@@ -1064,11 +1107,12 @@ class RingStepper:
     # -- one superstep ------------------------------------------------------
     def step(self, deadline: Optional[float] = None) -> bool:
         """Advance the in-flight wavefront by ONE superstep (parts 1,
-        1.5, 2+3 — see the module docstring).  ``wavefront=True`` steps
-        every queued entry; ``False`` steps a single entry (the
-        sequential reference).  Returns True while frontier entries
-        remain queued."""
-        if not self.queue:
+        1.5, 2+3 — see the module docstring), or resume a paused one to
+        its end or next pause.  ``wavefront=True`` steps every queued
+        entry; ``False`` steps a single entry (the sequential
+        reference).  Returns True while frontier entries remain queued
+        or a superstep is paused."""
+        if not self.queue and self._superstep is None:
             return False
         sp = otrace.span("ring.superstep", cat="engine",
                          entries=len(self.queue), jobs=len(self.jobs))
@@ -1088,6 +1132,39 @@ class RingStepper:
             return more
 
     def _step_impl(self, deadline: Optional[float] = None) -> bool:
+        if self._superstep is None:
+            self._superstep = self._superstep_body(deadline)
+        try:
+            next(self._superstep)           # to the next pause, or the end
+        except StopIteration:
+            self._superstep = None
+        except BaseException:
+            self._superstep = None
+            raise
+        return bool(self.queue) or self._superstep is not None
+
+    def _next_deadline(self) -> Optional[float]:
+        due = [j.deadline for j in self.jobs
+               if j.deadline is not None and not j.done]
+        return min(due) if due else None
+
+    def _pause(self, due: list):
+        """A checkpoint of the superstep body (``yield from``): mark
+        every job past its deadline expired, and pause if there was
+        one; ``due[0]`` is then the earliest live deadline again."""
+        now = self.clock()
+        hit = False
+        for job in self.jobs:
+            if job.deadline is not None and not job.done \
+                    and now >= job.deadline:
+                job.done = True
+                self.expired.append(job)
+                hit = True
+        if hit:
+            yield
+        due[0] = self._next_deadline()
+
+    def _superstep_body(self, deadline: Optional[float]):
         rpq = self.rpq
         if rpq.wavefront:
             chunk = list(self.queue)
@@ -1101,7 +1178,23 @@ class RingStepper:
                 stepped.add(id(job))
                 job.stats.supersteps += 1
 
-        import time as _time
+        # the earliest live job deadline; the wavelet trees' probe counts
+        # the superstep's pops and, every PROBE_EVERY of them, fires past
+        # it (or raises past the batch ``deadline``) — no QueryStats field
+        due = [self._next_deadline()]
+        clock = self.clock
+        pops = [0]
+
+        def probe():
+            pops[0] += 1
+            if pops[0] % PROBE_EVERY:
+                return False
+            if deadline is not None and time.time() > deadline:
+                raise TimeoutError("query deadline exceeded")
+            return due[0] is not None and clock() >= due[0]
+
+        if deadline is None and due[0] is None:
+            probe = None
 
         # ---- part 1: distinct predicates with D & B[p] != 0, over the
         # whole chunk — yields the superstep's task list.  With a live
@@ -1111,7 +1204,9 @@ class RingStepper:
         # lookups go through the JOB's snapshot (job.ring / job.ov) —
         # mixed-epoch slots each read their own graph version ----
         tasks: List[_Task] = []
-        for job, v, D in chunk:
+        for n, (job, v, D) in enumerate(chunk):
+            if due[0] is not None and n % 64 == 63 and clock() >= due[0]:
+                yield from self._pause(due)
             if job.done:
                 continue
             ring = job.ring
@@ -1127,7 +1222,7 @@ class RingStepper:
                 # entirely through delta adjacency)
                 stats.bfs_steps += 1
                 if deadline is not None and stats.bfs_steps % 64 == 0 \
-                        and _time.time() > deadline:
+                        and time.time() > deadline:
                     raise TimeoutError("query deadline exceeded")
             if e > b:
 
@@ -1135,8 +1230,14 @@ class RingStepper:
                     stats.wt_nodes_visited += 1
                     return (D & Bv.get((l, prefix), 0)) == 0
 
-                for p, rb, re_ in ring.wt_p.range_distinct(b, e,
-                                                           prune=prune_p):
+                for item in ring.wt_p.range_distinct(b, e, prune=prune_p,
+                                                     probe=probe):
+                    if item is None:
+                        yield from self._pause(due)
+                        if job.done:
+                            break
+                        continue
+                    p, rb, re_ = item
                     stats.predicates_enumerated += 1
                     masked = D & g.B.get(p, 0)
                     if masked == 0:
@@ -1156,9 +1257,19 @@ class RingStepper:
                                    obj=v, subjects=subs))
 
         # ---- part 1.5: bit-parallel D-step for every task at once,
-        # across ALL jobs/plans (and both task kinds) in one batch ----
+        # across ALL jobs/plans (and both task kinds) in one batch; while
+        # slots carry deadlines, in slices with a check between them ----
         self._last_tasks = len(tasks)
-        steps = rpq._transition_many(tasks, self.bundle)
+        step_of: List[Tuple[_Task, int]] = []
+        size = TRANSITION_SLICE if due[0] is not None else max(1, len(tasks))
+        for lo in range(0, len(tasks), size):
+            if lo and due[0] is not None and clock() >= due[0]:
+                yield from self._pause(due)
+            part = tasks[lo:lo + size]
+            if probe is not None:     # expired jobs step nothing
+                part = [t for t in part if not t.job.done]
+            step_of.extend(zip(part, rpq._transition_many(part,
+                                                          self.bundle)))
 
         # ---- parts 2+3, in task order (== each job's sequential FIFO
         # order, so per-job visited-mask evolution is identical) ----
@@ -1182,7 +1293,7 @@ class RingStepper:
             next_front.append((job, s, Dnew))
             return False
 
-        for task, Dstep in zip(tasks, steps):
+        for task, Dstep in step_of:
             job = task.job
             if job.done or Dstep == 0:
                 continue
@@ -1230,8 +1341,14 @@ class RingStepper:
                     Dv[key] = dv | Dstep
                 return False
 
-            for s, _srb, _sre in wt_s.range_distinct(task.sb, task.se,
-                                                     prune=prune_s):
+            for item in wt_s.range_distinct(task.sb, task.se,
+                                            prune=prune_s, probe=probe):
+                if item is None:
+                    yield from self._pause(due)
+                    if job.done:
+                        break
+                    continue
+                s = item[0]
                 stats.subjects_enumerated += 1
                 if tomb is not None:
                     if task.obj is not None:
@@ -1244,4 +1361,3 @@ class RingStepper:
         for job, s, Dnew in next_front:
             if not job.done:
                 self._push(job, s, Dnew)
-        return bool(self.queue)

@@ -29,7 +29,11 @@ Admission control: ``submit`` raises :class:`Backpressure` once
 ``max_queue`` queries are waiting (shed load at the door, don't grow an
 unbounded latency queue), and a per-query ``deadline_s`` preempts the
 query wherever it is — still queued, or mid-flight holding a slot (the
-slot is freed the same tick).
+slot is freed the same tick).  A ring slot's deadline also reaches
+inside the superstep: the stepper stops the job there and pauses the
+superstep, the tick fails the ticket, and the next tick resumes the
+superstep for the other slots (``preempted_in_superstep``).  A dense
+slot overruns by at most one tick (``rpq_tick_seconds``).
 
 Multi-version epoch serving: ``submit_update`` swaps the engine's
 overlay for a :meth:`~repro_torch.core.delta.DeltaOverlay.clone` before
@@ -61,6 +65,7 @@ import json
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from itertools import repeat
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from . import delta as dl
@@ -133,7 +138,9 @@ class QueryTicket:
 
     # -- scheduler side ------------------------------------------------------
     def _emit(self, pairs) -> int:
-        fresh = [p for p in sorted(pairs) if p not in self._emitted]
+        # sort only what is new: a final answer is mostly streamed already
+        # (sorting a hub's 10^5 pairs again costs more than the rest)
+        fresh = sorted(p for p in pairs if p not in self._emitted)
         self._emitted.update(fresh)
         self._stream.extend(fresh)
         return len(fresh)
@@ -158,11 +165,13 @@ class _Active:
 
 class _RingSlots:
     """Ring-engine adapter: slots are :class:`~repro_torch.core.rpq._Job`\\ s
-    in a shared :class:`~repro_torch.core.rpq.RingStepper` wavefront."""
+    in a shared :class:`~repro_torch.core.rpq.RingStepper` wavefront.
+    Each job carries its ticket's deadline into the superstep, which
+    stops the job there and pauses (see the stepper)."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, clock):
         self.eng = eng
-        self.stepper = eng.make_stepper()
+        self.stepper = eng.make_stepper(clock=clock)
 
     def snapshot(self):
         return (self.eng.ring, self.eng.delta)
@@ -174,15 +183,18 @@ class _RingSlots:
         return self.eng._start_cost(plan.g)
 
     def admit(self, plan, start: int, target: Optional[int], snapshot,
-              stats: QueryStats):
+              stats: QueryStats, deadline: Optional[float] = None):
         from .rpq import _Job
         job = _Job(plan=plan, start_obj=int(start), stats=stats,
-                   target=target)
+                   target=target, deadline=deadline)
         self.stepper.add_job(job, ring=snapshot[0], overlay=snapshot[1])
         return job
 
-    def step(self) -> None:
+    def step(self) -> List[Any]:
+        """One superstep, or a paused one resumed; returns the jobs that
+        expired inside it."""
         self.stepper.step()
+        return self.stepper.take_expired()
 
     def finished(self, job) -> bool:
         return self.stepper.finished(job)
@@ -212,11 +224,15 @@ class _DenseSlots:
         return None   # dense eval_many always runs single-BFS rows forward
 
     def admit(self, plan, start: int, target: Optional[int], snapshot,
-              stats: QueryStats):
+              stats: QueryStats, deadline: Optional[float] = None):
         return self.stepper.add_job(plan, int(start), edges=snapshot)
 
-    def step(self) -> None:
+    def step(self) -> List[Any]:
+        """``steps_per_tick`` supersteps of every slot; deadlines are
+        checked between ticks (``SlotScheduler._expire``), so a slot
+        overruns its deadline by at most one tick."""
         self.stepper.step()
+        return []
 
     def finished(self, slot) -> bool:
         return self.stepper.finished(slot)
@@ -238,7 +254,8 @@ class SlotScheduler:
     Knobs: ``max_slots`` (in-flight pool size), ``max_queue``
     (admission backpressure depth), ``steps_per_tick`` (dense: supersteps
     per tick — streaming granularity vs dispatch overhead),
-    ``clock`` (injectable for deadline tests), ``admission_policy``
+    ``clock`` (injectable for deadline tests; it also reads ring
+    slots' deadlines inside a superstep), ``admission_policy``
     ("fifo", or "edf" = earliest deadline first with FIFO tie-break for
     deadline-less tickets), ``recorder_capacity`` (the always-on flight
     recorder's ring size; every settled ticket appends one compact
@@ -272,8 +289,11 @@ class SlotScheduler:
         self._hist_preempt_wait = self.metrics.histogram(
             "rpq_preempted_queue_wait_seconds",
             "queue wait paid by deadline-preempted queries")
+        self._hist_tick = self.metrics.histogram(
+            "rpq_tick_seconds", "one scheduler tick: what an expired "
+            "ticket may wait for beyond its deadline's check")
         if hasattr(engine, "ring"):
-            self.slots: Any = _RingSlots(engine)
+            self.slots: Any = _RingSlots(engine, clock)
         elif hasattr(engine, "dg"):
             self.slots = _DenseSlots(engine, steps_per_tick=steps_per_tick)
         else:
@@ -285,6 +305,7 @@ class SlotScheduler:
         self.admitted = 0
         self.completed = 0
         self.preempted = 0
+        self.preempted_in_superstep = 0   # of those, stopped mid-superstep
         self.rejected = 0
         self.cache_hits = 0
         self.delegated = 0
@@ -349,13 +370,18 @@ class SlotScheduler:
                 with otrace.span("scheduler.superstep", cat="scheduler",
                                  slots=len(self.active)):
                     t0 = self.clock()
-                    self.slots.step()
+                    expired = self.slots.step()
                     dt = self.clock() - t0
                 # wall time inside superstep dispatch, attributed to every
                 # ticket that occupied a slot during it
                 for a in self.active:
                     a.ticket.stats.supersteps_s += dt
+                for a in [a for a in self.active
+                          if any(a.handle is h for h in expired)]:
+                    self._preempt(a, "superstep")
+                    self.preempted_in_superstep += 1
                 self._harvest()
+            self._hist_tick.observe(self.clock() - now)
         return bool(self.active or self.waiting)
 
     def drain(self) -> None:
@@ -376,8 +402,8 @@ class SlotScheduler:
         # the registry mirrors them on demand so exports see one source
         m = self.metrics
         for name in ("submitted", "admitted", "completed", "preempted",
-                     "rejected", "cache_hits", "delegated", "updates",
-                     "streamed_pairs"):
+                     "preempted_in_superstep", "rejected", "cache_hits",
+                     "delegated", "updates", "streamed_pairs"):
             m.counter(f"rpq_{name}_total",
                       f"scheduler {name} count").value = getattr(self, name)
         m.gauge("rpq_in_flight", "occupied slots").set(len(self.active))
@@ -487,13 +513,19 @@ class SlotScheduler:
                   and now >= a.ticket.deadline]:
             # deadline-aware preemption: the slot frees THIS tick, so
             # the stragglers behind it stop paying for the monster query
-            with otrace.span("scheduler.preempt", cat="scheduler",
-                             where="running", expr=a.ticket.query.expr):
-                self.slots.release(a.handle)
-                self.active.remove(a)
-                self._hist_preempt_wait.observe(a.ticket.stats.queue_wait_s)
-                self._fail(a.ticket, TimeoutError("query deadline exceeded"))
-            self.preempted += 1
+            self._preempt(a, "running")
+
+    def _preempt(self, a: _Active, where: str) -> None:
+        """Fail an in-flight ticket past its deadline and free its slot:
+        between ticks (``where="running"``) or, for a ring slot, inside
+        the superstep that stopped it (``"superstep"``)."""
+        with otrace.span("scheduler.preempt", cat="scheduler",
+                         where=where, expr=a.ticket.query.expr):
+            self.slots.release(a.handle)
+            self.active.remove(a)
+            self._hist_preempt_wait.observe(a.ticket.stats.queue_wait_s)
+            self._fail(a.ticket, TimeoutError("query deadline exceeded"))
+        self.preempted += 1
 
     def _pop_next(self) -> QueryTicket:
         """Next ticket to admit.  FIFO by default; ``edf`` picks the
@@ -614,7 +646,7 @@ class SlotScheduler:
                                       q.subject, None, "subj")
         ticket.stats.plan_actual_frontier = 1
         handle = self.slots.admit(plan, start, tgt, self.slots.snapshot(),
-                                  ticket.stats)
+                                  ticket.stats, deadline=ticket.deadline)
         active = _Active(ticket=ticket, handle=handle, kind=kind, target=tgt,
                          key=key, footprint=footprint)
         self.active.append(active)
@@ -628,15 +660,16 @@ class SlotScheduler:
         for a in list(self.active):
             ticket, q = a.ticket, a.ticket.query
             rep = self.slots.reported(a.handle)
-            new = rep - a.seen
+            new = rep - a.seen if len(rep) > len(a.seen) else set()
             a.seen |= new
             if new and q.limit is None:
+                # pairs in sorted order, for a sort that only checks it
                 if a.kind == "obj":
                     self.streamed_pairs += ticket._emit(
-                        (s, q.obj) for s in new)
+                        zip(sorted(new), repeat(q.obj)))
                 elif a.kind == "subj":
                     self.streamed_pairs += ticket._emit(
-                        (q.subject, o) for o in new)
+                        zip(repeat(q.subject), sorted(new)))
             hit = a.kind == "both" and a.target in a.seen
             if not hit and not self.slots.finished(a.handle):
                 continue
@@ -647,14 +680,18 @@ class SlotScheduler:
             if a.kind == "both":
                 if hit:
                     out.add((q.subject, q.obj))
+            elif q.limit is None:
+                # every pair of the answer has been streamed, the eps
+                # match at admission included
+                out = set(ticket._emitted)
             elif a.kind == "obj":
                 if null:
                     out.add((q.obj, q.obj))
-                out.update((s, q.obj) for s in a.seen)
+                out.update(zip(a.seen, repeat(q.obj)))
             else:
                 if null:
                     out.add((q.subject, q.subject))
-                out.update((q.subject, o) for o in a.seen)
+                out.update(zip(repeat(q.subject), a.seen))
             self._finish(ticket, out, a.key, a.footprint)
 
 
@@ -663,21 +700,25 @@ _DONE = object()
 
 class AsyncTicket:
     """Async view of a :class:`QueryTicket`: an async iterator of result
-    pairs, awaitable (via :meth:`result`) for the final answer set."""
+    pairs, awaitable (via :meth:`result`) for the final answer set.  The
+    pump queues each tick's new pairs as one batch."""
 
     def __init__(self, ticket: QueryTicket):
         self.ticket = ticket
         self._queue: asyncio.Queue = asyncio.Queue()
+        self._batch: deque = deque()
         self._settled = asyncio.Event()
 
     def __aiter__(self) -> "AsyncTicket":
         return self
 
     async def __anext__(self) -> Tuple[int, int]:
-        item = await self._queue.get()
-        if item is _DONE:
-            raise StopAsyncIteration
-        return item
+        while not self._batch:
+            item = await self._queue.get()
+            if item is _DONE:
+                raise StopAsyncIteration
+            self._batch.extend(item)
+        return self._batch.popleft()
 
     async def result(self) -> Set[Tuple[int, int]]:
         await self._settled.wait()
@@ -813,16 +854,13 @@ class AsyncServer:
 
     def _flush(self) -> None:
         for at in list(self._live):
-            for pair in at.ticket.new_pairs():
-                self._queue_put(at, pair)
+            pairs = at.ticket.new_pairs()
+            if pairs:
+                at._queue.put_nowait(pairs)
             if at.ticket.done:
-                self._queue_put(at, _DONE)
+                at._queue.put_nowait(_DONE)
                 at._settled.set()
                 self._live.remove(at)
-
-    @staticmethod
-    def _queue_put(at: AsyncTicket, item) -> None:
-        at._queue.put_nowait(item)
 
     async def _pump(self) -> None:
         while not (self._closing and not self.scheduler.pending()

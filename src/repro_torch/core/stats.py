@@ -102,8 +102,10 @@ class GraphStats:
                 continue
             sarr, oarr = pred_edges(p)
             self.freq[p] = sarr.size
-            self.distinct_subj[p] = np.unique(sarr).size
-            self.distinct_obj[p] = np.unique(oarr).size
+            # node ids are small non-negative ints: counting them is
+            # linear, where np.unique sorts (a live write waits on this)
+            self.distinct_subj[p] = np.count_nonzero(np.bincount(sarr))
+            self.distinct_obj[p] = np.count_nonzero(np.bincount(oarr))
         self.num_edges = int(self.freq.sum())
 
     # -- checkpoint serialization -------------------------------------------

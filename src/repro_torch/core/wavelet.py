@@ -158,7 +158,8 @@ class WaveletTree:
         b: int,
         e: int,
         prune: Optional[Callable[[int, int, bool], bool]] = None,
-    ) -> Iterator[Tuple[int, int, int]]:
+        probe: Optional[Callable[[], bool]] = None,
+    ) -> Iterator[Optional[Tuple[int, int, int]]]:
         """Yield ``(symbol, rank_b, rank_e)`` for every distinct symbol in
         seq[b:e): rank_b/rank_e are rank_symbol(b), rank_symbol(e), i.e.
         the within-leaf interval — exactly what backward search needs.
@@ -168,12 +169,23 @@ class WaveletTree:
         query interval spans the node's whole interval (used for sound
         D[v] updates).  Cost: O(log sigma) per reported symbol
         (Theorem 4.1 charging).
+
+        ``probe()`` is called before every stack pop: the caller's
+        deadline check, which counts the pops (across calls, if it likes)
+        and reads its clock every so often — this module reads none.
+        When it returns True the enumeration yields ``None`` there, a
+        checkpoint: the caller may stop (close the generator) or go on
+        iterating, which resumes exactly where it was.  A probe may also
+        raise, which ends the enumeration.  While no probe fires, the
+        output is the same as without one.
         """
         if e <= b:
             return
         # stack: (level, prefix, node_b, node_e, b, e)
         stack = [(0, 0, 0, self.n, int(b), int(e))]
         while stack:
+            if probe is not None and probe():
+                yield None
             l, prefix, nb, ne, qb, qe = stack.pop()
             if qe <= qb:
                 continue

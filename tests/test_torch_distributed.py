@@ -447,6 +447,46 @@ def test_deadline_on_sharded_dense_engine():
         shd.eval_many(qs, deadline_s=1e-9)
 
 
+@pytest.mark.parametrize("names,shape,model_axis", [
+    (("data",), (4,), None), (("data", "model"), (2, 2), "model")])
+def test_scheduler_slots_step_on_the_mesh(names, shape, model_axis):
+    """A ``SlotScheduler`` over a sharded dense engine steps its slots on
+    the mesh (``step_rows``, counted apart from ``eval``'s dispatches),
+    admits, preempts between ticks and releases them, and answers at
+    each ticket's epoch as the JAX dense engine's ``eval_many`` and the
+    oracle do, across a live update."""
+    g = rfix.random_graph(30, 3, 100, seed=4)
+    devices = np.empty(int(np.prod(shape)), dtype=object)
+    devices[:] = ["cpu"] * devices.size
+    port = pmake(convert.graph_from_reference(g), "dense", device="cpu",
+                 mesh=pdist.Mesh(devices.reshape(shape), names),
+                 model_axis=model_axis)
+    clk = [0.0]
+    sched = PSched(port, max_slots=3, clock=lambda: clk[0])
+    qs = [PQuery(e, obj=o) for e in EXPRS for o in (1, 7)]
+    doomed = sched.submit(PQuery("(0|1|2)*", obj=5), deadline_s=1.0)
+    tickets = [sched.submit(q) for q in qs[: len(qs) // 2]]
+    sched.step()
+    assert doomed.state == "running" and port.sharded.slot_dispatches == 1
+    clk[0] = 2.0
+    snapshots = {0: port.effective_graph()}
+    ep = sched.submit_update(add=[(1, 0, 7), (2, 1, 1)], remove=[(3, 2, 1)])
+    snapshots[ep] = port.effective_graph()
+    tickets += [sched.submit(q) for q in qs[len(qs) // 2:]]
+    sched.drain()
+    with pytest.raises(TimeoutError):
+        doomed.result()
+    assert sched.preempted == 1 and sched.in_flight == 0
+    assert port.sharded.dispatches == 0 and port.sharded.slot_dispatches > 1
+    assert {t.epoch for t in tickets} == {0, ep}
+    for q, t in zip(qs, tickets):
+        snap = snapshots[t.epoch]
+        want = rmake(snap, "dense").eval_many(
+            [RQuery(q.expr, q.subject, q.obj)])[0]
+        assert t.result() == want == eval_oracle(snap, q.expr, q.subject,
+                                                 q.obj), (q, t.epoch)
+
+
 @pytest.mark.parametrize("kind,devices,names,model_axis", [
     ("ring", ["cpu", "cpu:0", "cpu", "cpu:0"], ("data",), None),
     ("dense", ["cpu", "cpu:0", "cpu"], ("data",), None),
