@@ -84,12 +84,25 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      HTTP) on every request phase 2 tried, hub closures included, on (a)
      the ring under a 1 s deadline (each timeout settles within
      ``serve.OVERRUN_BOUND_S`` of it), (b) the dense engine and (c) the
-     dense engine on a mesh of 4 x the card under 60 s (no timeout); every
-     ``ok`` answer equals ``eval_many`` at its ticket's epoch, and each
-     run's ``/flight`` capture replays on a fresh engine with count
-     parity 1.0.
+     dense engine on a mesh of 4 x the card under 60 s (no timeout; each
+     the regular requests and the first ``SERVE_HUBS`` hub closures);
+     every ``ok`` answer equals ``eval_many`` at its ticket's epoch, and
+     each run's ``/flight`` capture replays on a fresh engine with count
+     parity 1.0;
+ 10. the LM (``repro_torch.launch``), smollm-135m at its published
+     widths: (a) ``launch.train`` at B = 8, T = 2,048 for 20 steps on
+     ``SyntheticLM`` (losses finite and falling; median step seconds,
+     tokens/s, model TFLOP/s beside the bf16 peak, peak memory, one
+     layer's attention timed, a profiled step); (b) ``launch.path_lm
+     --full --steps 300``; (c) a 2-layer cut failing at step 4 and
+     resuming against an uninterrupted run under deterministic
+     algorithms, and (a)'s full state saved and restored once, bit for
+     bit, on a thread beside (b); (d) ``launch.serve`` at B = 4, prompt 2,048, 32 tokens, and
+     decode consistency at full width; (e) the tiny config's loss and
+     gradients on the card against the CPU.  The LM must launch none of
+     the RPQ kernels.
 
-Each of phases 2-9 sets the launch counts to 0 just before its path (in
+Each of phases 2-10 sets the launch counts to 0 just before its path (in
 phase 9, before each run) and prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -105,12 +118,14 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -420,14 +435,19 @@ class ParentSuperstep:
 
 
 # -- phase 0 -----------------------------------------------------------------
-def phase_device():
-    import torch
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no output", flush=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else "nvidia-smi: no output")
+
+
+def phase_device():
+    import torch
+    print(smi_line(), flush=True)
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build()
@@ -2049,6 +2069,10 @@ SERVE_SLOTS = 64             # max_slots, and the requests the client keeps out
 # the ring's per-request deadline, cut from the paper's 60 s: a hub closure
 # does not finish on the ring in 17 s, and 605 of them at 60 s do not fit
 RING_SERVE_DEADLINE_S = 1.0
+# (b), the dense engine, and (c), the mesh, serve the regular requests and
+# only the first hub closures (cut from all 605, to leave phase 10 its time:
+# phase 7 answers all 605 on the dense engine in one batch)
+SERVE_HUBS = 64
 
 
 def _stats_copy(stats):
@@ -2110,16 +2134,22 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
            "concurrency": SERVE_SLOTS, "live_adds": len(adds),
            "overrun_bound_s": serve.OVERRUN_BOUND_S}
 
-    def serve_run(name, deadline_s):
+    def serve_run(name, deadline_s, idx=None):
+        """Serve ``reqs`` (or those at ``idx``, in workload order)."""
+        idx = list(range(len(reqs))) if idx is None else idx
         engine = builds[name]()
         kernels.reset_launch_counts()
-        run = serve.run(engine, reqs, slots=SERVE_SLOTS,
+        run = serve.run(engine, [reqs[i] for i in idx], slots=SERVE_SLOTS,
                         concurrency=SERVE_SLOTS, deadline_s=deadline_s,
                         adds=adds)
         launches = kernels.launch_counts()
+        run["idx"] = idx
         if run["update_epoch"] != 1:
             fail(f"{name}: the live update made epoch {run['update_epoch']}")
-        report = serve.latency_summary(run, classes)
+        members = {c: set(v) for c, v in classes.items()}
+        report = serve.latency_summary(run, {
+            c: [j for j, i in enumerate(idx) if i in m]
+            for c, m in members.items()})
         report.update(deadline_s=deadline_s, kernel_launches=launches)
         if set(report["ok_by_epoch"]) != {"0", "1"}:
             fail(f"{name}: answers at epochs {report['ok_by_epoch']}, not "
@@ -2148,13 +2178,14 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
     def check(name, run):
         """Hold the run's ok answers to eval_many at their epochs; epoch
         1 from ``yardstick`` (its answers to (b)'s replay are cached)."""
+        sel = [reqs[i] for i in run["idx"]]
         idx = sorted({o.index for o in run["outcomes"]
                       if o.ok and o.epoch == 1})
         t0 = time.perf_counter()
-        want = {0: epoch0, 1: dict(zip(idx, yardstick.eval_many(
-            [reqs[i] for i in idx])))}
+        want = {0: [epoch0[i] for i in run["idx"]],
+                1: dict(zip(idx, yardstick.eval_many([sel[j] for j in idx])))}
         try:
-            checked = serve.check_answers(run["outcomes"], reqs, want)
+            checked = serve.check_answers(run["outcomes"], sel, want)
         except AssertionError as e:
             fail(f"{name}: {e}")
         out[name].update(answers_equal_eval_many=checked,
@@ -2184,8 +2215,14 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
              f"more than {serve.OVERRUN_BOUND_S} s")
     replay("ring", ring_run, builds["ring"]())
 
-    # (b) the dense engine: its capture replays on the epoch-1 yardstick
-    run = serve_run("dense", BATCH_DEADLINE_S)
+    # (b) the dense engine: its capture replays on the epoch-1 yardstick;
+    # (b) and (c) serve the regular requests and the first SERVE_HUBS hub
+    # closures
+    cut = sorted(classes["regular"] + classes["hub"][:SERVE_HUBS])
+    cut_note = (f"{len(classes['regular'])} regular requests and the "
+                f"first {SERVE_HUBS} of {len(classes['hub'])} hub closures")
+    run = serve_run("dense", BATCH_DEADLINE_S, cut)
+    out["dense"]["cut"] = cut_note
     yardstick = builds["dense"]()
     replay("dense", run, yardstick)
     check("dense", run)
@@ -2193,7 +2230,8 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
     del run, ring_run
 
     # (c) the dense engine on the mesh
-    run = serve_run("mesh", BATCH_DEADLINE_S)
+    run = serve_run("mesh", BATCH_DEADLINE_S, cut)
+    out["mesh"]["cut"] = cut_note
     check("mesh", run)
     replay("mesh", run, builds["mesh"]())
     del run, yardstick
@@ -2205,6 +2243,416 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
                  f"{name} serving front at {BATCH_DEADLINE_S} s")
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+# -- phase 10 ----------------------------------------------------------------
+LM_ARCH = "smollm-135m"
+LM_DEVICE = "cuda"
+LM_TRAIN = {"seq": 2048, "batch": 8, "steps": 20}
+LM_STEADY = slice(4, 20)          # steps 5-20, 1-indexed: the median's
+LM_PATH_STEPS = 300
+# (c): smollm-135m at its published widths, depth cut to 2 layers (every
+# save of the full 30-layer state is 1.6 GB through zlib); 6 steps,
+# save_every 2, one run failing at step 4
+RESUME = {"layers": 2, "steps": 6, "save_every": 2, "fail_at": 4,
+          "seq": 512, "batch": 8}
+LM_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
+# dense bf16 tensor-core peak of one H100 SXM at 700 W (NVIDIA's data sheet)
+BF16_PEAK_FLOPS = 989e12
+FLOPS_FORMULA = ("6*N*tokens + 12*L*H*Dh*T*tokens (N = param_count(), "
+                 "remat recompute not counted)")
+
+
+def _quiet(_msg: str) -> None:
+    pass
+
+
+def lm_flops(cfg, batch: int, seq: int) -> float:
+    tokens = batch * seq
+    return (6 * cfg.param_count() * tokens + 12 * cfg.num_layers *
+            cfg.num_heads * cfg.head_dim * seq * tokens)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def attention_times(cfg, batch: int, seq: int) -> dict:
+    """One layer's blockwise attention at the training shape, CUDA events:
+    the forward, and forward + backward through the custom Function; the
+    f32 score tensor of one chunk, and (timed only, used nowhere in the
+    port) ``scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.layers import _flash_fwd, flash_attention
+    H, K, Dh = cfg.eff_num_heads, cfg.eff_num_kv_heads, cfg.head_dim
+    chunk = min(cfg.attn_chunk, seq)
+    g = torch.Generator(device=LM_DEVICE).manual_seed(0)
+    q = torch.randn((batch, seq, H, Dh), generator=g, device=LM_DEVICE,
+                    dtype=torch.bfloat16).requires_grad_()
+    k = torch.randn((batch, seq, K, Dh), generator=g, device=LM_DEVICE,
+                    dtype=torch.bfloat16).requires_grad_()
+    v = torch.randn_like(k).requires_grad_()
+    dout = torch.randn_like(q)
+
+    def fwd():
+        with torch.no_grad():
+            _flash_fwd(q, k, v, True, chunk, 0, 0, None)
+
+    def fwd_bwd():
+        out = flash_attention(q, k, v, causal=True, chunk=chunk)
+        torch.autograd.grad(out, (q, k, v), dout)
+
+    qh = q.detach().transpose(1, 2)
+    kh, vh = (t.detach().repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for t in (k, v))
+
+    def sdpa():
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    return {"shape": [batch, seq, H, K, Dh], "chunk": chunk,
+            "scores_f32_bytes_a_chunk": batch * H * seq * chunk * 4,
+            "fwd_ms": time_ms(fwd, runs=5), "fwd_bwd_ms": time_ms(fwd_bwd,
+                                                                 runs=5),
+            "sdpa_fwd_ms": time_ms(sdpa, runs=5)}
+
+
+ATTENTION_SCOPES = ("attention_fwd", "attention_bwd")
+
+
+@contextlib.contextmanager
+def attention_scopes():
+    """Wrap the port's blockwise attention forward and backward
+    (``layers._flash_fwd``, ``layers._flash_bwd``) in profiler scopes
+    while a step is profiled, so its kernels can be told apart."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers
+    saved = layers._flash_fwd, layers._flash_bwd
+
+    def scoped(name, fn):
+        def run(*args):
+            with record_function(name):
+                return fn(*args)
+        return run
+
+    layers._flash_fwd = scoped(ATTENTION_SCOPES[0], saved[0])
+    layers._flash_bwd = scoped(ATTENTION_SCOPES[1], saved[1])
+    try:
+        yield
+    finally:
+        layers._flash_fwd, layers._flash_bwd = saved
+
+
+def profile_step(step_fn, state, batch, top: int = 10) -> dict:
+    """One train step under ``torch.profiler``: the card's kernel time
+    against the step's wall time, the share of it in the attention's
+    scopes (forward, its recompute under remat, and backward), and the
+    heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with attention_scopes(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        _, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    # the scopes' own device-side annotations are spans, not kernels
+    device = [e for e in prof.key_averages()
+              if e.device_type == cuda and e.key not in ATTENTION_SCOPES]
+    busy_us = sum(e.self_device_time_total for e in device)
+    attn_us = {name: 0.0 for name in ATTENTION_SCOPES}
+    for e in prof.events():
+        if e.device_type != cuda and e.name in attn_us:
+            attn_us[e.name] += e.device_time_total
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"profiled_step_s": wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "attention_device_ms": {k: v / 1e3 for k, v in attn_us.items()},
+            "attention_share_of_busy": sum(attn_us.values()) / busy_us
+            if busy_us else None,
+            "top_kernels_count_ms": [[e.key[:70], e.count,
+                                      e.self_device_time_total / 1e3]
+                                     for e in device[:top]]}
+
+
+def lm_train(smi: str):
+    """(a) ``launch.train`` at the published config on ``SyntheticLM``."""
+    import torch
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg, rep = ltrain.run(
+        ["--arch", LM_ARCH, "--seq", str(LM_TRAIN["seq"]), "--batch",
+         str(LM_TRAIN["batch"]), "--steps", str(LM_TRAIN["steps"]),
+         "--device", LM_DEVICE],
+        log_fn=_quiet)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = rep.losses
+    if len(losses) != LM_TRAIN["steps"] or not all(
+            x == x and abs(x) != float("inf") for x in losses):
+        fail(f"(a) losses are not all finite: {losses}")
+    first5 = statistics.fmean(losses[:5])
+    last5 = statistics.fmean(losses[-5:])
+    step_s = statistics.median(rep.step_seconds[LM_STEADY])
+    tokens = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    flops = lm_flops(cfg, LM_TRAIN["batch"], LM_TRAIN["seq"])
+    # one more step, profiled, from the trained state
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, LM_TRAIN["seq"], LM_TRAIN["batch"])
+    batch = {k: torch.from_numpy(v).to(LM_DEVICE)
+             for k, v in data.batch(LM_TRAIN["steps"]).items()}
+    step_fn = make_train_step(cfg, optim.AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN["steps"]))
+    line = {"phase": "lm_train", "device": smi, "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": cfg.param_count(), **LM_TRAIN, "seconds": seconds,
+            "losses": losses, "first5": first5, "last5": last5,
+            "median_step_s": step_s, "step_s": rep.step_seconds,
+            "tokens_per_s": tokens / step_s,
+            "model_tflops_per_s": flops / step_s / 1e12,
+            "flops_per_step": flops, "flops_formula": FLOPS_FORMULA,
+            "peak_tflops_per_s": BF16_PEAK_FLOPS / 1e12,
+            "mfu": flops / step_s / BF16_PEAK_FLOPS,
+            "peak_memory_bytes": peak, "memory_before_bytes": base,
+            "data_s": rep.data_seconds,
+            "attention": attention_times(cfg, LM_TRAIN["batch"],
+                                         LM_TRAIN["seq"]),
+            "profile": profile_step(step_fn, rep.state, batch)}
+    if not last5 < first5:
+        fail(f"(a) the loss did not fall: first5 {first5}, last5 {last5}")
+    return line, rep.state
+
+
+def lm_path():
+    """(b) ``launch.path_lm --full --steps 300``."""
+    from repro_torch.launch import path_lm as lpath
+    t0 = time.perf_counter()
+    report, cfg, _ = lpath.run(["--full", "--steps", str(LM_PATH_STEPS),
+                                "--ckpt", "", "--device", LM_DEVICE],
+                               log_fn=_quiet)
+    line = {"phase": "lm_path", **report,
+            "seconds": time.perf_counter() - t0,
+            "learned_gate": "printed, not gated: last5 < log(vocab) - 1"}
+    if not report["last5"] < report["first5"]:
+        fail(f"(b) the path LM's loss did not fall: {report}")
+    return line
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def lm_resume():
+    """(c) fail at step 4 and resume against an uninterrupted run, both
+    under deterministic algorithms."""
+    import tempfile
+    from dataclasses import replace
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import loop, optim
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = replace(get_config(LM_ARCH), num_layers=RESUME["layers"])
+    data = SyntheticLM(cfg.vocab_size, RESUME["seq"], RESUME["batch"])
+    ocfg = optim.AdamWConfig(lr=3e-4, warmup_steps=1,
+                             total_steps=RESUME["steps"])
+    kw = dict(num_steps=RESUME["steps"], opt_cfg=ocfg,
+              save_every=RESUME["save_every"], log_fn=_quiet,
+              device=LM_DEVICE)
+    out = {"phase": "lm_resume", "arch": LM_ARCH,
+           "cut": f"num_layers 30 -> {RESUME['layers']} (widths as "
+                  "published)", **RESUME}
+    with tempfile.TemporaryDirectory() as d:
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            try:
+                loop.train(cfg, data, ckpt_dir=os.path.join(d, "a"),
+                           fail_at_step=RESUME["fail_at"], **kw)
+                fail("(c) the simulated preemption did not happen")
+            except RuntimeError as e:
+                if "simulated preemption" not in str(e):
+                    raise
+            resumed = loop.train(cfg, data, ckpt_dir=os.path.join(d, "a"),
+                                 **kw)
+            # compared in memory: the uninterrupted run saves nothing
+            straight = loop.train(cfg, data, ckpt_dir=None, **kw)
+            out["runs_s"] = time.perf_counter() - t0
+            out["deterministic_step_s"] = statistics.median(
+                straight.step_seconds)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if resumed.resumed_from != RESUME["fail_at"]:
+            fail(f"(c) resumed from {resumed.resumed_from}")
+        a = ckpt._flatten(loop.train_state_tree(resumed.state))
+        b = ckpt._flatten(loop.train_state_tree(straight.state))
+        worst = 0.0
+        for (ka, x), (kb, y) in zip(a, b):
+            if ka != kb:
+                fail(f"(c) state keys differ: {ka} != {kb}")
+            x, y = x.double(), y.double()
+            if not torch.allclose(x, y, rtol=1e-5, atol=1e-6):
+                fail(f"(c) resumed state differs from the uninterrupted "
+                     f"run's at {ka}")
+            worst = max(worst, float((x - y).abs().max()))
+        out["max_abs_diff"] = worst
+        out["equal_bitwise"] = all(torch.equal(x, y) for (_, x), (_, y)
+                                   in zip(a, b))
+        # the same steps without deterministic algorithms, for their cost
+        state = init_state(cfg, 0, LM_DEVICE)
+        step_fn = make_train_step(cfg, ocfg)
+        times = []
+        for s in range(RESUME["steps"]):
+            batch = {k: torch.from_numpy(v).to(LM_DEVICE)
+                     for k, v in data.batch(s).items()}
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        out["default_step_s"] = statistics.median(times)
+    return out
+
+
+def lm_full_checkpoint(full_state) -> dict:
+    """(c), its second part: the full 30-layer state of (a) saved and
+    restored once each, exact.  It runs on a thread beside (b), whose
+    eager steps hold one core: zlib deflates and inflates on another with
+    the GIL released."""
+    import tempfile
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.train import loop
+    out = {"full_beside": "(b) lm_path, on a thread"}
+    full = ckpt._flatten(loop.train_state_tree(full_state))
+    before = [t.clone() for _, t in full]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "full")
+        t0 = time.perf_counter()
+        loop.save_train_state(path, LM_TRAIN["steps"], full_state,
+                              extra={"data": {"step": LM_TRAIN["steps"]}})
+        out["full_save_s"] = time.perf_counter() - t0
+        out["full_bytes_on_disk"] = _dir_bytes(path)
+        out["full_state_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in before)
+        with torch.no_grad():
+            for p in full_state["params"].parameters():
+                p.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extra = loop.restore_train_state(path, full_state)
+        torch.cuda.synchronize()
+        out["full_restore_s"] = time.perf_counter() - t0
+    after = ckpt._flatten(loop.train_state_tree(full_state))
+    if extra["data"]["step"] != LM_TRAIN["steps"] or not all(
+            torch.equal(x, y) for x, (_, y) in zip(before, after)):
+        fail("(c) the full state did not restore bit for bit")
+    out["full_restore_exact"] = True
+    return out
+
+
+def lm_serve():
+    """(d) ``launch.serve``, and decode consistency at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    report, model, prompts = lserve.run(
+        ["--arch", LM_ARCH, "--batch", str(LM_SERVE["batch"]),
+         "--prompt-len", str(LM_SERVE["prompt_len"]), "--gen",
+         str(LM_SERVE["gen"]), "--device", LM_DEVICE])
+    seconds = time.perf_counter() - t0
+    if not report["finite"]:
+        fail("(d) the decoded logits are not finite")
+    cfg = get_config(LM_ARCH)
+    T = LM_SERVE["prompt_len"]
+    nxt = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (LM_SERVE["batch"], 1))).to(LM_DEVICE)
+    full, _ = api.prefill_fn(model, {"tokens": torch.cat([prompts, nxt], 1)},
+                             cfg, max_len=T + 5)
+    _, cache = api.prefill_fn(model, {"tokens": prompts}, cfg,
+                              max_len=T + 5)
+    dec, _ = api.decode_fn(model, cache, nxt, cfg)
+    full, dec = full.float(), dec.float()
+    err = float((dec - full).abs().max())
+    bound_ = 0.1 * float(full.abs().max()) + 0.06
+    line = {"phase": "lm_serve", **report, "seconds": seconds,
+            "decode_consistency": {"max_abs_err": err, "bound": bound_,
+                                   "formula": "0.1 * max|ref| + 0.06"}}
+    if not err < bound_:
+        fail(f"(d) decode differs from prefill: {err} >= {bound_}")
+    return line
+
+
+def lm_card_vs_cpu():
+    """(e) the tiny config's loss and gradients on the card against the
+    CPU, from the same converted params."""
+    from dataclasses import replace
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import api
+    cfg = replace(smoke_variant(get_config(LM_ARCH)), num_layers=2,
+                  d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+                  d_ff=64, vocab_size=64)
+    host = api.init_params(cfg, 0, "cpu")
+    tree = convert.lm_params_to_reference(host)
+    card = api.init_params(cfg, 1, LM_DEVICE)
+    card.load_state_dict(convert.lm_params_from_reference(tree))
+    data = SyntheticLM(cfg.vocab_size, 32, 4).batch(0)
+    out = {"phase": "lm_card_vs_cpu", "config": "tiny (tests' _tiny_cfg)"}
+    losses, grads = [], []
+    for model, dev in ((host, "cpu"), (card, LM_DEVICE)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        loss, _ = api.loss_fn(model, batch, cfg)
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+        losses.append(float(loss.detach()))
+    out["loss_cpu"], out["loss_cuda"] = losses
+    out["grad_rel_l2_max"] = max(_rel_l2(b, a) for a, b in zip(*grads))
+    if abs(losses[0] - losses[1]) >= 1e-2 or out["grad_rel_l2_max"] > 5e-2:
+        fail(f"(e) the card's loss or gradients differ from the CPU's: {out}")
+    return out
+
+
+def phase_lm(smi: str) -> None:
+    """Phase 10: the LM on the card, (a)-(e), one line each; the RPQ
+    kernels' counts set to 0 before and read after: the LM launches none
+    of them."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    print(smi, flush=True)
+    reset_launch_counts()
+    line, state = lm_train(smi)
+    emit(line)
+    # (c)'s full-state checkpoint, host-bound on one core, beside (b)
+    with ThreadPoolExecutor(1) as pool:
+        full = pool.submit(lm_full_checkpoint, state)
+        line = lm_path()
+        full_line = full.result()
+    emit(line)
+    del state
+    emit({**lm_resume(), **full_line})
+    torch.cuda.empty_cache()
+    emit(lm_serve())
+    emit(lm_card_vs_cpu())
+    launches = launch_counts()
+    emit({"phase": "lm", "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        fail(f"the LM launched an RPQ kernel: {launches}")
 
 
 # -- the kernels line ----------------------------------------------------------
@@ -2394,6 +2842,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.core import fixtures
+    # phase 10 (c) runs under deterministic algorithms, which need a fixed
+    # cuBLAS workspace before the first cuBLAS call (no earlier phase
+    # makes one)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     if opts.parent is not None:
         PARENT = ParentSuperstep(opts.parent)
@@ -2432,6 +2884,7 @@ def main() -> int:
         hub_answers, capture)
     del hub_answers, dense_engine
     emit(front)
+    phase_lm(smi_line())
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],

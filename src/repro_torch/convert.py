@@ -1,4 +1,4 @@
-"""Carry the JAX package's state into the port.
+"""Carry the JAX package's state into the port, and LM parameters back.
 
 Duck-typed on purpose: the port never imports the JAX package, so these
 take any object (or state dict) of the right shape.  Engine state
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .core.ring import LabeledGraph
 from .core.stats import GraphStats
@@ -37,3 +38,73 @@ def stats_from_reference(state: Dict[str, Any]) -> GraphStats:
     """A port :class:`GraphStats` from ``GraphStats.to_state()`` of either
     package (a flat dict of numpy arrays)."""
     return GraphStats.from_state(state)
+
+
+# -- LM parameters: the module's flat names <-> the reference's stacked tree --
+
+def _stack(items, like):
+    if isinstance(like, torch.Tensor):
+        return torch.stack(items)
+    return np.stack([np.asarray(a) for a in items])
+
+
+def lm_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's parameter tree from a model's flat parameters
+    (``Transformer.named_parameters()`` names such as ``layers.3.attn.wq``
+    -> ``tree["layers"]["attn"]["wq"][3]``): the layers stacked on a
+    leading L axis, tensors or numpy arrays as given."""
+    tree: Dict[str, Any] = {}
+    per_layer: Dict[str, list] = {}
+    for name, value in flat.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(".".join(parts[2:]), []).append(
+                (int(parts[1]), value))
+        else:
+            tree[name] = value
+    layers: Dict[str, Any] = {}
+    for key, items in per_layer.items():
+        items.sort(key=lambda iv: iv[0])
+        node = layers
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = _stack([v for _, v in items], items[0][1])
+    if layers:
+        tree["layers"] = layers
+    return tree
+
+
+def lm_flat(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_tree`: unstack ``tree["layers"]`` into
+    ``layers.<i>.<path>`` entries."""
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                for i in range(v.shape[0]):
+                    flat[".".join(("layers", str(i)) + prefix + (k,))] = v[i]
+
+    for k, v in tree.items():
+        if k == "layers":
+            walk(v, ())
+        else:
+            flat[k] = v
+    return flat
+
+
+def lm_params_to_reference(model) -> Dict[str, Any]:
+    """A port model (or its ``state_dict()``) as the reference's parameter
+    pytree of f32 numpy arrays, layers stacked."""
+    state = model.state_dict() if hasattr(model, "state_dict") else model
+    return lm_tree({n: t.detach().cpu().numpy() for n, t in state.items()})
+
+
+def lm_params_from_reference(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's parameter pytree (numpy arrays, stacked layers) as a
+    port ``state_dict`` on the CPU, for ``model.load_state_dict``."""
+    return {n: torch.from_numpy(np.array(a, dtype=np.float32))
+            for n, a in lm_flat(tree).items()}

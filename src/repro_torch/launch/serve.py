@@ -1,0 +1,103 @@
+"""Serving launcher, the JAX package's ``launch/serve.py`` on one device:
+prefill a batch of prompts, then decode greedily.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --batch 4 --prompt-len 2048 --gen 32 [--smoke] [--device cpu]
+
+Random weights from a seed and random prompts.  Without ``--device`` it
+runs on the card and fails without one.  The last line printed is a
+JSON report.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs import get_config, smoke_variant
+from ..kernels.ops import resolve_device
+from ..models import api
+from ..train.step import make_prefill_step, make_serve_step
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    return ap
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(argv: Optional[Sequence[str]] = None):
+    """Parse ``argv``, prefill and decode.  Returns (report, model,
+    prompts): the report has ``prefill_s`` (the first prefill, cold, and a
+    second one, warm), ``decode_ms_per_token`` and the greedy tokens."""
+    args = parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    model = api.init_params(cfg, 0, dev)
+    toks = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int64)) \
+        .to(dev)
+    batch = {"tokens": toks}
+    max_len = args.prompt_len + args.gen + 4
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_serve_step(cfg)
+
+    prefill_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        _sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+
+    out = []
+    cur = torch.argmax(logits, dim=-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(args.gen):
+        logits, cache = decode(model, cache, cur)
+        cur = torch.argmax(logits, dim=-1)[:, None]
+        out.append(cur)
+    _sync(dev)
+    t_dec = time.perf_counter() - t0
+    gen = torch.cat(out, dim=1).cpu().numpy()
+    report = {
+        "arch": cfg.name, "batch": args.batch, "prompt_len": args.prompt_len,
+        "gen": args.gen, "prefill_s": prefill_s,
+        "decode_ms_per_token": t_dec / args.gen * 1e3,
+        "decode_tokens_per_s": args.batch * args.gen / t_dec,
+        "sample": gen[0][:12].tolist(), "finite": bool(
+            torch.isfinite(logits.float()).all())}
+    return report, model, toks
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    rep, _, _ = run(argv)
+    cold, warm = rep["prefill_s"]
+    print(f"prefill {rep['batch']}x{rep['prompt_len']}: {warm*1e3:.1f} ms "
+          f"(cold {cold*1e3:.1f})")
+    print(f"decode {rep['gen']} steps: {rep['decode_ms_per_token']:.1f} "
+          f"ms/step ({rep['decode_tokens_per_s']:.1f} tok/s)")
+    print("sample:", rep["sample"])
+    print(json.dumps(rep))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

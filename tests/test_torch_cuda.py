@@ -858,3 +858,40 @@ def test_sharded_engines_across_cards_match_host(cuda_device):
                                        else cards)}
         else:
             assert card.sharded_kernel_batches > 0
+
+
+@pytest.mark.cuda
+def test_lm_on_card_matches_host(cuda_device):
+    """The dense LM (no RPQ kernel) on the card against the host from the
+    same weights: loss within 1e-2, each gradient's relative L2 error at
+    most 5e-2, prefill and decode logits within the decode bound; and no
+    RPQ kernel launched."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import api
+    cfg = replace(smoke_variant(get_config("smollm-135m")), num_layers=2,
+                  d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+                  d_ff=64, vocab_size=64)
+    host = api.init_params(cfg, 0, "cpu")
+    card = api.init_params(cfg, 1, cuda_device)
+    card.load_state_dict(host.state_dict())
+    data = SyntheticLM(cfg.vocab_size, 32, 4).batch(0)
+    tk.reset_launch_counts()
+    out = []
+    for model, dev in ((host, "cpu"), (card, cuda_device)):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        loss, _ = api.loss_fn(model, batch, cfg)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        last, cache = api.prefill_fn(model, {"tokens": batch["tokens"]}, cfg,
+                                     max_len=40)
+        dec, _ = api.decode_fn(model, cache, batch["labels"][:, -1:], cfg)
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                    last.float().cpu(), dec.float().cpu()))
+    (hl, hg, hp, hd), (cl, cg, cp, cd) = out
+    assert abs(float(hl) - float(cl)) < 1e-2
+    for a, b in zip(cg, hg):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 5e-2
+    for a, b in ((cp, hp), (cd, hd)):
+        assert float((a - b).abs().max()) < 0.1 * float(b.abs().max()) + 0.06
+    assert not any(tk.launch_counts().values())
