@@ -100,9 +100,18 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      bit, on a thread beside (b); (d) ``launch.serve`` at B = 4, prompt 2,048, 32 tokens, and
      decode consistency at full width; (e) the tiny config's loss and
      gradients on the card against the CPU.  The LM must launch none of
-     the RPQ kernels.
+     the RPQ kernels;
+ 11. the LM families (``repro_torch.launch.serve``, ``train.step``): (a)
+     olmoe-1b-7b (moe), (b) paligemma-3b (vlm), (c) mamba2-2.7b (ssm), (d)
+     zamba2-7b (hybrid), (e) seamless-m4t-medium (encdec), each served at
+     its published size (B = 2, 1,024 positions, 32 greedy tokens; decode
+     consistency, olmoe's at B = 1, T = 256 where its capacity drops
+     nothing, with the pairs its served prefill dropped), trained 20
+     steps at B = 4, T = 512 at its published widths, depth cut (losses
+     finite and falling), and its smoke variant, then qwen2-moe's, on the
+     card against the CPU.  None of the RPQ kernels may launch.
 
-Each of phases 2-10 sets the launch counts to 0 just before its path (in
+Each of phases 2-11 sets the launch counts to 0 just before its path (in
 phase 9, before each run) and prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -2560,38 +2569,46 @@ def lm_full_checkpoint(full_state) -> dict:
     return out
 
 
-def lm_serve():
-    """(d) ``launch.serve``, and decode consistency at full width."""
+def decode_consistency(model, cfg, prompt: dict, seed: int = 1) -> dict:
+    """The reference's ``test_arch_decode_consistency`` at any size:
+    prefill(T) + decode(1) against prefill(T+1)'s last logits, one
+    random next token; ``prompt`` is ``launch.serve.prompt_batch``'s
+    (a vlm's patches and an encdec's frames stay as they are)."""
     import numpy as np
     import torch
+    from repro_torch.models import api
+    toks = prompt["tokens"]
+    nxt = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, (toks.shape[0], 1))).to(toks.device)
+    ml = toks.shape[1] + cfg.num_prefix_embeds + 5
+    full, _ = api.prefill_fn(model, {**prompt, "tokens": torch.cat(
+        [toks, nxt], 1)}, cfg, max_len=ml)
+    _, cache = api.prefill_fn(model, prompt, cfg, max_len=ml)
+    dec, _ = api.decode_fn(model, cache, nxt, cfg)
+    full, dec = full.float(), dec.float()
+    return {"max_abs_err": float((dec - full).abs().max()),
+            "bound": 0.1 * float(full.abs().max()) + 0.06,
+            "formula": "0.1 * max|ref| + 0.06",
+            "shape": [int(toks.shape[0]), int(toks.shape[1])]}
+
+
+def lm_serve():
+    """(d) ``launch.serve``, and decode consistency at full width."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as lserve
-    from repro_torch.models import api
     t0 = time.perf_counter()
-    report, model, prompts = lserve.run(
+    report, model, prompt = lserve.run(
         ["--arch", LM_ARCH, "--batch", str(LM_SERVE["batch"]),
          "--prompt-len", str(LM_SERVE["prompt_len"]), "--gen",
          str(LM_SERVE["gen"]), "--device", LM_DEVICE])
     seconds = time.perf_counter() - t0
     if not report["finite"]:
         fail("(d) the decoded logits are not finite")
-    cfg = get_config(LM_ARCH)
-    T = LM_SERVE["prompt_len"]
-    nxt = torch.from_numpy(np.random.default_rng(1).integers(
-        2, cfg.vocab_size, (LM_SERVE["batch"], 1))).to(LM_DEVICE)
-    full, _ = api.prefill_fn(model, {"tokens": torch.cat([prompts, nxt], 1)},
-                             cfg, max_len=T + 5)
-    _, cache = api.prefill_fn(model, {"tokens": prompts}, cfg,
-                              max_len=T + 5)
-    dec, _ = api.decode_fn(model, cache, nxt, cfg)
-    full, dec = full.float(), dec.float()
-    err = float((dec - full).abs().max())
-    bound_ = 0.1 * float(full.abs().max()) + 0.06
+    gate = decode_consistency(model, get_config(LM_ARCH), prompt)
     line = {"phase": "lm_serve", **report, "seconds": seconds,
-            "decode_consistency": {"max_abs_err": err, "bound": bound_,
-                                   "formula": "0.1 * max|ref| + 0.06"}}
-    if not err < bound_:
-        fail(f"(d) decode differs from prefill: {err} >= {bound_}")
+            "decode_consistency": gate}
+    if not gate["max_abs_err"] < gate["bound"]:
+        fail(f"(d) decode differs from prefill: {gate}")
     return line
 
 
@@ -2653,6 +2670,261 @@ def phase_lm(smi: str) -> None:
           "seconds": time.perf_counter() - t_phase})
     if any(launches.values()):
         fail(f"the LM launched an RPQ kernel: {launches}")
+
+
+# -- phase 11 ----------------------------------------------------------------
+# the LM substrate's other families at their published sizes: (part,
+# config); each config's source is in its file under configs/
+FAMILY_ARCHS = (("moe", "olmoe-1b-7b"), ("vlm", "paligemma-3b"),
+                ("ssm", "mamba2-2.7b"), ("hybrid", "zamba2-7b"),
+                ("encdec", "seamless-m4t-medium"))
+# serve: B = 2, prompts of 1,024 positions (a vlm's 256 patches + 768
+# tokens; an encdec's 256 frames and 1,024 target tokens), 32 greedy tokens
+FAMILY_SERVE = {"batch": 2, "positions": 1024, "gen": 32, "frames": 256}
+# olmoe's decode-consistency gate at B*T <= C = int(2048*8/64*1.25) = 320:
+# its one padded group can then drop no real (token, slot) pair
+MOE_GATE = {"batch": 1, "prompt_len": 256}
+# train: published widths, depth cut (olmoe's whole state, 6.92 B x 16
+# bytes, would not fit in 80 GB); the hybrid keeps one group of 6 and one
+# tail layer, so the shared block and the tail both run
+FAMILY_TRAIN = {"batch": 4, "seq": 512, "steps": 20}
+FAMILY_CUTS = {"moe": {"num_layers": 2}, "vlm": {"num_layers": 2},
+               "ssm": {"num_layers": 2}, "hybrid": {"num_layers": 7},
+               "encdec": {"num_layers": 2, "enc_layers": 2}}
+FAMILY_STEADY = slice(4, 20)       # steps 5-20, the median's
+# card against CPU: each family's smoke variant, and qwen2-moe's too
+# (shared experts)
+CARD_VS_CPU_EXTRA = "qwen2-moe-a2.7b"
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_batch(cfg, B: int, T: int, step: int, device) -> dict:
+    """A training batch of ``T`` positions, shaped as the reference's
+    ``_smoke_batch`` (``tests/test_models.py``): tokens and labels from
+    ``SyntheticLM`` (learnable, seeded by ``step``); a vlm's first
+    ``num_prefix_embeds`` positions random patch embeddings, their labels
+    masked out; an encdec's ``T`` random frames."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    rng = np.random.default_rng(np.random.SeedSequence([7, step]))
+    Np = cfg.num_prefix_embeds if cfg.family == "vlm" else 0
+    syn = SyntheticLM(cfg.vocab_size, T - Np, B).batch(step)
+    out = {k: torch.from_numpy(v).long() for k, v in syn.items()}
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(torch.bfloat16)
+
+    if cfg.family == "vlm":
+        out["patch_embeds"] = normal(B, Np, cfg.d_model)
+        out["labels"] = torch.cat([torch.zeros((B, Np), dtype=torch.long),
+                                   out["labels"]], 1)
+        out["mask"] = torch.cat([torch.zeros((B, Np), dtype=torch.long),
+                                 torch.ones((B, T - Np), dtype=torch.long)], 1)
+    if cfg.family == "encdec":
+        out["frames"] = normal(B, T, cfg.d_model)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def moe_drop_counter(counts: dict):
+    """Count, in every ``moe_block`` call while it is open, the real
+    (token, slot) pairs past their expert's capacity (dropped) and all of
+    them, by the block's own routing."""
+    import torch
+    from repro_torch.models import layers, transformer
+    saved = transformer.moe_block
+
+    def counting(p, x, cfg, group_size=0):
+        B, T, d = x.shape
+        N, E, k = B * T, cfg.eff_num_experts, cfg.top_k
+        g = group_size or cfg.moe_group_size
+        ng = -(-N // g)
+        xg = torch.nn.functional.pad(x.reshape(N, d), (0, 0, 0, ng * g - N))
+        _, _, top_e = layers.moe_router(p, xg.reshape(ng, g, d), cfg)
+        _, within = layers.queue_positions(top_e, E, layers.capacity(cfg, g))
+        counts["dropped"] += int((~within).reshape(ng * g, k)[:N].sum())
+        counts["pairs"] += N * k
+        return saved(p, x, cfg, group_size)
+
+    transformer.moe_block = counting
+    try:
+        yield counts
+    finally:
+        transformer.moe_block = saved
+
+
+def family_serve(part: str, arch: str) -> dict:
+    """``launch.serve`` at the published size; decode consistency (for
+    the moe at ``MOE_GATE``, where its capacity drops nothing, and the
+    pairs the served prompt's prefill dropped)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    prompt_len = FAMILY_SERVE["positions"] - (
+        cfg.num_prefix_embeds if part == "vlm" else 0)
+    t0 = time.perf_counter()
+    report, model, prompt = lserve.run(
+        ["--arch", arch, "--batch", str(FAMILY_SERVE["batch"]),
+         "--prompt-len", str(prompt_len), "--gen", str(FAMILY_SERVE["gen"]),
+         "--frames", str(FAMILY_SERVE["frames"]), "--device", LM_DEVICE])
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    nparams = sum(t.numel() for t in model.parameters())
+    line = {"phase": "lm_family_serve", "part": part, "arch": arch,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": nparams, "init_s": report["init_s"],
+            "prefill_s_cold": report["prefill_s"][0],
+            "prefill_s_warm": report["prefill_s"][1],
+            "decode_ms_per_token": report["decode_ms_per_token"],
+            "decode_tokens_per_s": report["decode_tokens_per_s"],
+            "peak_gb": peak / 1e9, "serve_s": serve_s,
+            "prompt": {k: list(v.shape) for k, v in prompt.items()},
+            "gen": FAMILY_SERVE["gen"], "finite": report["finite"]}
+    if not report["finite"]:
+        fail(f"({part}) {arch}'s decoded logits are not finite")
+    if part == "moe":
+        counts = {"dropped": 0, "pairs": 0}
+        with moe_drop_counter(counts):
+            api.prefill_fn(model, prompt, cfg, max_len=FAMILY_SERVE[
+                "positions"] + 1)
+        line["served_prefill_drops"] = counts
+        prompt = lserve.prompt_batch(cfg, MOE_GATE["batch"],
+                                     MOE_GATE["prompt_len"], 0,
+                                     np.random.default_rng(2), LM_DEVICE)
+        with moe_drop_counter({"dropped": 0, "pairs": 0}) as gate_counts:
+            gate = decode_consistency(model, cfg, prompt)
+        if gate_counts["dropped"]:
+            fail(f"(moe) the gate's prefill dropped {gate_counts}")
+        gate["prefill_drops"] = gate_counts
+    else:
+        gate = decode_consistency(model, cfg, prompt)
+    line["decode_consistency"] = gate
+    line["kernel_launches"] = launch_counts()
+    line["peak_gb_with_gate"] = torch.cuda.max_memory_allocated() / 1e9
+    if not gate["max_abs_err"] < gate["bound"]:
+        fail(f"({part}) {arch}: decode differs from prefill: {gate}")
+    del model, prompt
+    _free()
+    return line
+
+
+def family_train(part: str, arch: str) -> dict:
+    """20 steps through ``make_train_step`` at the published widths, the
+    depth cut by ``FAMILY_CUTS``, remat on."""
+    import math
+    from dataclasses import replace
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    full = get_config(arch)
+    cfg = replace(full, **FAMILY_CUTS[part])
+    B, T, n = FAMILY_TRAIN["batch"], FAMILY_TRAIN["seq"], FAMILY_TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, 0, LM_DEVICE)
+    step_fn = make_train_step(cfg, optim.AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=n))
+    losses, gnorms, aux, times = [], [], [], []
+    for s in range(n):
+        batch = family_batch(cfg, B, T, s, LM_DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        if "moe_aux" in m:
+            aux.append(float(m["moe_aux"]))
+    step_s = statistics.median(times[FAMILY_STEADY])
+    first5, last5 = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
+    cut = ", ".join(f"{k} {getattr(full, k)} -> {v}"
+                    for k, v in FAMILY_CUTS[part].items())
+    line = {"phase": "lm_family_train", "part": part, "arch": arch,
+            "cut": f"{cut} (widths as published)", **FAMILY_TRAIN,
+            "params": sum(t.numel() for t in state["params"].parameters()),
+            "losses": losses, "grad_norms": gnorms, "first5": first5,
+            "last5": last5, "median_step_s": step_s, "step_s": times,
+            "tokens_per_s": B * T / step_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if aux:
+        line["moe_aux"] = aux
+    del state, step_fn
+    _free()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"({part}) {arch}: a loss or gradient norm is not finite")
+    if not last5 < first5:
+        fail(f"({part}) {arch}: the loss did not fall: {first5} -> {last5}")
+    return line
+
+
+def family_card_vs_cpu(arch: str) -> dict:
+    """The smoke variant's loss and gradients on the card against the CPU
+    from the same weights and batch: the whole gradient's relative L2
+    error, and each leaf's, at most (PR 18's (e) bound).  A small leaf
+    whose gradient sums terms that cancel (a mamba layer's ``A_log``,
+    ``conv_C``) moves by about 1% when a few bf16 products round the other
+    way, which the card's and the CPU's matmuls do."""
+    import torch
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import api
+    cfg = smoke_variant(get_config(arch))
+    host = api.init_params(cfg, 0, "cpu")
+    card = api.init_params(cfg, 1, LM_DEVICE)
+    card.load_state_dict(host.state_dict())
+    data = family_batch(cfg, 2, 32, 0, "cpu")
+    losses, grads = [], []
+    for model, dev in ((host, "cpu"), (card, LM_DEVICE)):
+        batch = {k: v.to(dev) for k, v in data.items()}
+        loss, _ = api.loss_fn(model, batch, cfg)
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+        losses.append(float(loss.detach()))
+    host_g, card_g = (torch.cat([g.flatten().cpu() for g in gs])
+                      for gs in grads)
+    out = {"arch": cfg.name, "loss_cpu": losses[0], "loss_cuda": losses[1],
+           "grad_rel_l2": _rel_l2(card_g, host_g),
+           "grad_rel_l2_max_leaf": max(_rel_l2(b, a)
+                                       for a, b in zip(*grads))}
+    if (abs(losses[0] - losses[1]) >= 1e-3 or out["grad_rel_l2"] > 1e-2
+            or out["grad_rel_l2_max_leaf"] > 5e-2):
+        fail(f"{cfg.name}: the card's loss or gradients differ from the "
+             f"CPU's: {out}")
+    return out
+
+
+def phase_families(smi: str) -> None:
+    """Phase 11: each family served at its published size, trained at its
+    published widths (depth cut), and its smoke variant on the card
+    against the CPU; one line each.  The RPQ kernels' counts are set to 0
+    before and read after: the LM launches none of them."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    print(smi, flush=True)
+    reset_launch_counts()
+    for part, arch in FAMILY_ARCHS + (("moe", CARD_VS_CPU_EXTRA),):
+        if arch != CARD_VS_CPU_EXTRA:
+            emit({**family_serve(part, arch), "device": smi})
+            emit({**family_train(part, arch), "device": smi})
+        emit({"phase": "lm_family_card_vs_cpu", "part": part,
+              **family_card_vs_cpu(arch),
+              "gates": "loss within 1e-3; the gradient within 1e-2 "
+                       "relative L2, every leaf within 5e-2"})
+    launches = launch_counts()
+    emit({"phase": "lm_families", "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        fail(f"the LM families launched an RPQ kernel: {launches}")
 
 
 # -- the kernels line ----------------------------------------------------------
@@ -2885,6 +3157,7 @@ def main() -> int:
     del hub_answers, dense_engine
     emit(front)
     phase_lm(smi_line())
+    phase_families(smi_line())
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],

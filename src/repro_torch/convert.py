@@ -48,49 +48,59 @@ def _stack(items, like):
     return np.stack([np.asarray(a) for a in items])
 
 
+# the reference's groups of layers, stacked on a leading axis
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def lm_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
-    """The reference's parameter tree from a model's flat parameters
-    (``Transformer.named_parameters()`` names such as ``layers.3.attn.wq``
-    -> ``tree["layers"]["attn"]["wq"][3]``): the layers stacked on a
-    leading L axis, tensors or numpy arrays as given."""
+    """The reference's parameter tree from a model's flat parameters, any
+    family: a layer's entries (``layers.3.attn.wq``,
+    ``dec_layers.0.cross.wk``, ``layers.1.moe.shared.wg``) stacked on a
+    leading axis of their group (``tree["layers"]["attn"]["wq"][3]``),
+    the rest nested by name (``shared_attn.attn.wq`` ->
+    ``tree["shared_attn"]["attn"]["wq"]``); tensors or numpy arrays as
+    given."""
     tree: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
+    per_layer: Dict[tuple, list] = {}
     for name, value in flat.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(".".join(parts[2:]), []).append(
+        if parts[0] in STACKED:
+            per_layer.setdefault((parts[0],) + tuple(parts[2:]), []).append(
                 (int(parts[1]), value))
         else:
-            tree[name] = value
-    layers: Dict[str, Any] = {}
-    for key, items in per_layer.items():
+            _put(tree, parts, value)
+    for path, items in per_layer.items():
         items.sort(key=lambda iv: iv[0])
-        node = layers
-        *path, leaf = key.split(".")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = _stack([v for _, v in items], items[0][1])
-    if layers:
-        tree["layers"] = layers
+        _put(tree, path, _stack([v for _, v in items], items[0][1]))
     return tree
 
 
+def _put(tree: Dict[str, Any], path, value) -> None:
+    *inner, leaf = path
+    for p in inner:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
 def lm_flat(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The inverse of :func:`lm_tree`: unstack ``tree["layers"]`` into
-    ``layers.<i>.<path>`` entries."""
+    """The inverse of :func:`lm_tree`: unstack each group of layers into
+    ``<group>.<i>.<path>`` entries, join the other paths with dots."""
     flat: Dict[str, Any] = {}
 
-    def walk(node, prefix):
+    def walk(node, prefix, group):
         for k, v in node.items():
+            path = prefix + (k,)
             if isinstance(v, dict):
-                walk(v, prefix + (k,))
-            else:
+                walk(v, path, group)
+            elif group:
                 for i in range(v.shape[0]):
-                    flat[".".join(("layers", str(i)) + prefix + (k,))] = v[i]
+                    flat[".".join((path[0], str(i)) + path[1:])] = v[i]
+            else:
+                flat[".".join(path)] = v
 
     for k, v in tree.items():
-        if k == "layers":
-            walk(v, ())
+        if isinstance(v, dict):
+            walk(v, (k,), k in STACKED)
         else:
             flat[k] = v
     return flat

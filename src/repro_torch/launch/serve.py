@@ -4,9 +4,11 @@ prefill a batch of prompts, then decode greedily.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 4 --prompt-len 2048 --gen 32 [--smoke] [--device cpu]
 
-Random weights from a seed and random prompts.  Without ``--device`` it
-runs on the card and fails without one.  The last line printed is a
-JSON report.
+Random weights from a seed and random prompts: a vlm's prompt also has
+``num_prefix_embeds`` random patch embeddings before its tokens, an
+encdec's ``--frames`` random frame embeddings for its encoder.  Without
+``--device`` it runs on the card and fails without one.  The last line
+printed is a JSON report.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--frames", type=int, default=16,
+                    help="encoder frames of an encdec prompt")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     return ap
@@ -41,22 +45,41 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def prompt_batch(cfg, batch: int, prompt_len: int, frames: int,
+                 rng: np.random.Generator, device) -> dict:
+    """Random prompts: ``tokens`` [B, prompt_len], and a vlm's
+    ``patch_embeds`` [B, Np, d] or an encdec's ``frames`` [B, frames, d]
+    (bf16, standard normal)."""
+    out = {"tokens": torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (batch, prompt_len)).astype(np.int64))}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.from_numpy(rng.normal(size=(
+            batch, cfg.num_prefix_embeds, cfg.d_model))).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.normal(size=(
+            batch, frames, cfg.d_model))).to(torch.bfloat16)
+    return {k: v.to(device) for k, v in out.items()}
+
+
 def run(argv: Optional[Sequence[str]] = None):
     """Parse ``argv``, prefill and decode.  Returns (report, model,
-    prompts): the report has ``prefill_s`` (the first prefill, cold, and a
-    second one, warm), ``decode_ms_per_token`` and the greedy tokens."""
+    prompt): the report has ``init_s`` (the random weights), ``prefill_s``
+    (the first prefill, cold, and a second one, warm),
+    ``decode_ms_per_token`` and the greedy tokens; the prompt is
+    :func:`prompt_batch`'s."""
     args = parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
     dev = resolve_device(args.device)
     rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
     model = api.init_params(cfg, 0, dev)
-    toks = torch.from_numpy(rng.integers(
-        2, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int64)) \
-        .to(dev)
-    batch = {"tokens": toks}
-    max_len = args.prompt_len + args.gen + 4
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.frames, rng,
+                         dev)
+    max_len = args.prompt_len + cfg.num_prefix_embeds + args.gen + 4
     prefill = make_prefill_step(cfg, max_len)
     decode = make_serve_step(cfg)
 
@@ -79,12 +102,12 @@ def run(argv: Optional[Sequence[str]] = None):
     gen = torch.cat(out, dim=1).cpu().numpy()
     report = {
         "arch": cfg.name, "batch": args.batch, "prompt_len": args.prompt_len,
-        "gen": args.gen, "prefill_s": prefill_s,
+        "gen": args.gen, "init_s": init_s, "prefill_s": prefill_s,
         "decode_ms_per_token": t_dec / args.gen * 1e3,
         "decode_tokens_per_s": args.batch * args.gen / t_dec,
         "sample": gen[0][:12].tolist(), "finite": bool(
             torch.isfinite(logits.float()).all())}
-    return report, model, toks
+    return report, model, batch
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

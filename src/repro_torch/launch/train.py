@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --steps 200 --seq 256 --batch 8 [--ckpt artifacts/run1] [--smoke]
 
-Trains on ``SyntheticLM`` from a random init.  Without ``--device`` it
-runs on the card and fails without one; ``--device cpu`` runs on the
-host.  The last line printed is a JSON report.
+Trains on ``SyntheticLM`` from a random init: any decoder-only family
+(dense, moe, ssm, hybrid); a vlm or encdec batch needs patches or
+frames that ``SyntheticLM`` does not make, so those two are refused.
+Without ``--device`` it runs on the card and fails without one;
+``--device cpu`` runs on the host.  The last line printed is a JSON
+report.
 """
 from __future__ import annotations
 
@@ -38,8 +41,12 @@ def parser() -> argparse.ArgumentParser:
 
 def run(argv: Optional[Sequence[str]] = None, log_fn=print):
     """Parse ``argv`` and train.  Returns (cfg, TrainReport)."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if cfg.family in ("vlm", "encdec"):
+        ap.error(f"{args.arch}: SyntheticLM has no {cfg.family} batches "
+                 "(patch embeddings or frames)")
     if args.smoke:
         cfg = smoke_variant(cfg)
         cfg = replace(cfg, name=cfg.name.replace("-smoke", ""))

@@ -1,1 +1,1 @@
-"""The LM substrate's dense family: layers, the transformer, losses, API."""
+"""The LM substrate: layers, the models of every family, losses, API."""

@@ -22,6 +22,30 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     return x * scale * (1.0 + w).to(x.dtype)
 
 
+class Logistic(torch.autograd.Function):
+    """The JAX package's ``lax.logistic``: ``1 / (1 + exp(-x))`` in x's
+    dtype, each of the four ops rounded to it (JAX lowers the primitive
+    so on every backend; ``torch.sigmoid`` rounds once, which moves
+    about a third of bf16 results by an ulp), and its derivative
+    ``g * (ans * logistic(-x))``, the primitive's own rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ans = ctx.saved_tensors
+        return g * (ans * (1.0 / (1.0 + torch.exp(x))))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * logistic(x)`` in x's dtype."""
+    return x * Logistic.apply(x)
+
+
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 

@@ -1,6 +1,6 @@
-"""Transformer building blocks: GQA attention (blockwise/flash, cached)
-and the SwiGLU MLP — the JAX package's ``models/layers.py`` for the dense
-family (its MoE blocks are not ported yet, ROADMAP queue 1).
+"""Transformer building blocks: GQA attention (blockwise/flash, cached),
+the SwiGLU MLP and the GShard-style MoE — the JAX package's
+``models/layers.py``.
 
 Attention mirrors the reference's blockwise algorithm step for step: a
 loop over KV chunks with an online softmax in f32, and a custom backward
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import rms_norm, rotate
+from .common import rms_norm, rotate, silu
 
 NEG_INF = -1e30
 
@@ -236,5 +236,110 @@ def mlp_block(p: Dict[str, torch.Tensor], x):
     xc = x.to(torch.bfloat16)
     g = torch.matmul(xc, p["wg"])
     u = torch.matmul(xc, p["wu"])
-    h = F.silu(g) * u
+    h = silu(g) * u
     return torch.matmul(h, p["wd"])
+
+
+# --------------------------------------------------------------------------
+# MoE (GShard-style grouped dispatch; shared + routed experts)
+# --------------------------------------------------------------------------
+def top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, ties
+    broken by the lower index.  A stable descending sort keeps that order;
+    ``torch.topk`` does not promise it, and a zero row (the padding of a
+    group) gives exactly uniform probabilities, all ties."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_router(p: Dict[str, torch.Tensor], xg, cfg):
+    """Router logits ``[..., E]`` f32 -> (probs, top_p, top_e): padded
+    experts (``eff_num_experts > num_experts``) get -1e30 and are never
+    chosen; the top-k probabilities are renormalised to sum to 1.
+
+    The product is an f32 matmul of the bf16 operands (each product exact
+    in f32).  The reference casts its bf16 einsum to f32 at once, and XLA
+    then keeps the dot's f32 result (it allows excess precision): its
+    compiled logits are never rounded to bf16, and a near-tie between
+    experts turns on that rounding."""
+    logits = torch.matmul(xg.to(torch.bfloat16).float(), p["router"].float())
+    E = cfg.eff_num_experts
+    if E > cfg.num_experts:
+        pad = torch.arange(E, device=logits.device) >= cfg.num_experts
+        logits = logits.masked_fill(pad, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = top_k(probs, cfg.top_k)
+    top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def capacity(cfg, g: int) -> int:
+    """Slots an expert has in a group of ``g`` tokens (GShard)."""
+    return max(1, int(g * cfg.top_k / cfg.eff_num_experts
+                      * cfg.capacity_factor))
+
+
+def queue_positions(top_e: torch.Tensor, E: int, C: int):
+    """Each (token, slot)'s position in its expert's queue and whether it
+    is kept (``pos < C``): a cumulative count over the group's ``g * k``
+    pairs in (token, slot) order.  ``top_e``: ``[..., g, k]``."""
+    *lead, g, k = top_e.shape
+    onehot = F.one_hot(top_e, E)                              # [..., g, k, E]
+    pos = onehot.reshape(*lead, g * k, E).cumsum(dim=-2) \
+        .reshape(*lead, g, k, E) - 1
+    pos = (pos * onehot).sum(dim=-1)                          # [..., g, k]
+    return pos, pos < C
+
+
+def moe_block_dropless(p: Dict[str, torch.Tensor], x, cfg):
+    """Capacity-free MoE for decode (small token counts): every expert is
+    applied to every token and combined by the routing weights, so no
+    token is dropped.  Returns (out, 0.0)."""
+    B, T, d = x.shape
+    E = cfg.eff_num_experts
+    xt = x.reshape(B * T, d).to(torch.bfloat16)
+    _, top_p, top_e = moe_router(p, xt, cfg)
+    w = (F.one_hot(top_e, E).float() * top_p[..., None]).sum(dim=1)  # [N, E]
+    h = silu(torch.matmul(xt, p["wg"])) * torch.matmul(xt, p["wu"])
+    out = torch.matmul(h, p["wd"])                                   # [E,N,d]
+    y = torch.einsum("end,ne->nd", out.float(), w).reshape(B, T, d)
+    if "shared" in p:
+        y = y + mlp_block(p["shared"], x).float()
+    return y.to(x.dtype), 0.0
+
+
+def moe_block(p: Dict[str, torch.Tensor], x, cfg, group_size: int = 0):
+    """x: [B, T, d].  Top-k routing with per-group expert capacity
+    ``C = g*k/E * capacity_factor`` (GShard); a dropped (token, slot)
+    passes through the residual only.  Groups have a fixed size
+    ``g`` (the last one padded with zero rows), so a token's queue
+    position never depends on the tokens after it.  The reference maps
+    over the groups one at a time; here they are a leading batch axis.
+    Dispatch and combine are its one-hot products, in bf16.  Returns
+    (out, aux_loss)."""
+    B, T, d = x.shape
+    E = cfg.eff_num_experts
+    N = B * T
+    g = group_size or cfg.moe_group_size
+    ng = -(-N // g)
+    xg = F.pad(x.reshape(N, d), (0, 0, 0, ng * g - N)).reshape(ng, g, d)
+    C = capacity(cfg, g)
+    bf = torch.bfloat16
+
+    probs, top_p, top_e = moe_router(p, xg, cfg)              # [ng, g, k]
+    pos, within = queue_positions(top_e, E, C)
+    ge = F.one_hot(top_e, E).to(bf)                           # [ng,g,k,E]
+    pc = F.one_hot(torch.where(within, pos, C), C + 1).to(bf)[..., :C]
+    disp = torch.einsum("nske,nskc->nsec", ge, pc)            # [ng,g,E,C]
+    comb = torch.einsum("nske,nskc->nsec", ge * top_p.to(bf)[..., None], pc)
+    xin = torch.einsum("nsec,nsd->necd", disp, xg.to(bf))     # [ng,E,C,d]
+    h = silu(torch.matmul(xin, p["wg"])) * torch.matmul(xin, p["wu"])
+    out = torch.matmul(h, p["wd"])                            # [ng,E,C,d]
+    y = torch.einsum("necd,nsec->nsd", out, comb)
+    # load-balance aux loss (Switch): E * mean(frac_tokens * mean_prob)
+    frac = ge.float().sum(dim=2).mean(dim=1)                  # [ng, E]
+    aux = E * (frac * probs.mean(dim=1)).sum(dim=-1)          # [ng]
+    y = y.reshape(ng * g, d)[:N].reshape(B, T, d)
+    if "shared" in p:
+        y = y + mlp_block(p["shared"], x)
+    return y.to(x.dtype), aux.mean()

@@ -1,8 +1,8 @@
 """Train / serve steps, the JAX package's ``train/step.py`` on one device.
 
 The state is ``{"params": model, "opt": {"mu", "nu", "step"}}``: the
-model is a :class:`~repro_torch.models.transformer.Transformer` whose
-parameters a train step replaces in place, the moments are dicts of
+model (``api.init_params``'s, any family) has its parameters replaced
+in place by a train step, the moments are dicts of
 parameter name -> f32 tensor, and ``step`` an int32 scalar.
 """
 from __future__ import annotations

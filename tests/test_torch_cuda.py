@@ -895,3 +895,66 @@ def test_lm_on_card_matches_host(cuda_device):
     for a, b in ((cp, hp), (cd, hd)):
         assert float((a - b).abs().max()) < 0.1 * float(b.abs().max()) + 0.06
     assert not any(tk.launch_counts().values())
+
+
+def _family_batch(cfg, B=2, T=32, seed=0):
+    """The reference's smoke batch of each family, from numpy."""
+    rng = np.random.default_rng(seed)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(torch.bfloat16)
+
+    if cfg.family == "encdec":
+        return {"frames": normal(B, T, cfg.d_model), "tokens": ints(B, T),
+                "labels": ints(B, T)}
+    if cfg.family == "vlm":
+        Np = cfg.num_prefix_embeds
+        return {"patch_embeds": normal(B, Np, cfg.d_model),
+                "tokens": ints(B, T - Np), "labels": ints(B, T),
+                "mask": torch.cat([torch.zeros((B, Np), dtype=torch.long),
+                                   torch.ones((B, T - Np), dtype=torch.long)],
+                                  1)}
+    return {"tokens": ints(B, T), "labels": ints(B, T)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "olmoe-1b-7b",
+                                  "paligemma-3b", "mamba2-2.7b", "zamba2-7b",
+                                  "seamless-m4t-medium"])
+def test_lm_families_on_card_match_host(cuda_device, arch):
+    """Each family's smoke variant on the card against the host from the
+    same weights and batch: loss within 1e-2, each gradient's relative L2
+    error at most 5e-2, prefill and decode logits within the decode
+    bound; and no RPQ kernel launched."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import api
+    cfg = smoke_variant(get_config(arch))
+    host = api.init_params(cfg, 0, "cpu")
+    card = api.init_params(cfg, 1, cuda_device)
+    card.load_state_dict(host.state_dict())
+    data = _family_batch(cfg)
+    Np = cfg.num_prefix_embeds
+    tk.reset_launch_counts()
+    out = []
+    for model, dev in ((host, "cpu"), (card, cuda_device)):
+        batch = {k: v.to(dev) for k, v in data.items()}
+        loss, _ = api.loss_fn(model, batch, cfg)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        prompt = {k: v for k, v in batch.items()
+                  if k in ("tokens", "patch_embeds", "frames")}
+        last, cache = api.prefill_fn(model, prompt, cfg,
+                                     max_len=prompt["tokens"].shape[1]
+                                     + Np + 4)
+        dec, _ = api.decode_fn(model, cache, batch["labels"][:, -1:], cfg)
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                    last.float().cpu(), dec.float().cpu()))
+    (hl, hg, hp, hd), (cl, cg, cp, cd) = out
+    assert abs(float(hl) - float(cl)) < 1e-2
+    for a, b in zip(cg, hg):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 5e-2
+    for a, b in ((cp, hp), (cd, hd)):
+        assert float((a - b).abs().max()) < 0.1 * float(b.abs().max()) + 0.06
+    assert not any(tk.launch_counts().values())

@@ -171,10 +171,3 @@ def test_decode_consistency_and_reference_decode(name):
         cache["kv"]["k"][:, :, :T].float().numpy(),
         np.asarray(rcache["kv"]["k"][:, :, :T], np.float32), atol=0.05,
         rtol=0.02)
-
-
-def test_other_families_raise_not_implemented():
-    for arch in ("qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
-                 "paligemma-3b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            api.init_params(smoke_variant(get_config(arch)), device="cpu")

@@ -241,7 +241,7 @@ def test_launchers_run_on_the_cpu(tmp_path):
     out, model, prompts = lserve.run(["--arch", "smollm-135m", "--smoke",
                                       "--batch", "2", "--prompt-len", "8",
                                       "--gen", "3", "--device", "cpu"])
-    assert out["finite"] and prompts.shape == (2, 8)
+    assert out["finite"] and prompts["tokens"].shape == (2, 8)
     assert len(out["prefill_s"]) == 2 and out["decode_ms_per_token"] > 0
     report, pcfg, _ = lpath.run(["--steps", "3", "--ckpt", "", "--device",
                                  "cpu"], log_fn=lambda s: None)
