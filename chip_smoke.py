@@ -94,10 +94,10 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      ``SyntheticLM`` (losses finite and falling; median step seconds,
      tokens/s, model TFLOP/s beside the bf16 peak, peak memory, one
      layer's attention timed, a profiled step); (b) ``launch.path_lm
-     --full --steps 300``; (c) a 2-layer cut failing at step 4 and
+     --full --steps 100``; (c) a 2-layer cut failing at step 2 and
      resuming against an uninterrupted run under deterministic
      algorithms, and (a)'s full state saved and restored once, bit for
-     bit, on a thread beside (b); (d) ``launch.serve`` at B = 4, prompt 2,048, 32 tokens, and
+     bit, on a thread beside (b) and those runs; (d) ``launch.serve`` at B = 4, prompt 2,048, 32 tokens, and
      decode consistency at full width; (e) the tiny config's loss and
      gradients on the card against the CPU.  The LM must launch none of
      the RPQ kernels;
@@ -109,9 +109,29 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      nothing, with the pairs its served prefill dropped), trained 20
      steps at B = 4, T = 512 at its published widths, depth cut (losses
      finite and falling), and its smoke variant, then qwen2-moe's, on the
-     card against the CPU.  None of the RPQ kernels may launch.
+     card against the CPU.  None of the RPQ kernels may launch;
+ 12. the dense LM on a (data 2, model 2) mesh of 4 x the card
+     (``launch.mesh.make_host_mesh(model=2, shards=4)``, the
+     ``train.step`` entry points with ``mesh=``): (a) smollm-135m at its
+     published size trains 10 steps at B = 8, T = 1,024 against a
+     one-device run from the same state and batches (step 1's loss
+     within 2e-3, its gradient within 1e-2 relative L2 and every leaf
+     within 5e-2, every loss within 1e-2, falling), its step-5 state
+     saved on a thread; serves B = 4 (prefill T = 1,024, 16 greedy
+     tokens) and B = 1 (``small_batch``), the prefill logits against one
+     device and decode consistency on the mesh within ``0.1 * max|ref|
+     + 0.06``; and, last, restores the step-5 checkpoint onto the mesh
+     (bit for bit) and resumes, equal to the uninterrupted run
+     (``rtol=1e-5, atol=1e-6``, deterministic algorithms from step 6);
+     (b) qwen3-4b serves at its published size (B = 2, T = 1,024, 8
+     tokens) and trains 5 steps at B = 4, T = 512 at its published
+     widths, depth cut to 2 layers, under the same gates, then profiles
+     one more mesh step (the card's busy and idle share).  Each line gives step seconds, tokens/s, model TFLOP/s,
+     resident bytes a coordinate against the specs, collective bytes a
+     step by kind, the replicated dims and peak memory.  None of the RPQ
+     kernels may launch.
 
-Each of phases 2-11 sets the launch counts to 0 just before its path (in
+Each of phases 2-12 sets the launch counts to 0 just before its path (in
 phase 9, before each run) and prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -129,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2259,11 +2280,14 @@ LM_ARCH = "smollm-135m"
 LM_DEVICE = "cuda"
 LM_TRAIN = {"seq": 2048, "batch": 8, "steps": 20}
 LM_STEADY = slice(4, 20)          # steps 5-20, 1-indexed: the median's
-LM_PATH_STEPS = 300
+# (b): 100 steps, cut from the launcher's 300 to keep the script inside
+# its time limit (the loss has fallen well before step 100)
+LM_PATH_STEPS = 100
 # (c): smollm-135m at its published widths, depth cut to 2 layers (every
-# save of the full 30-layer state is 1.6 GB through zlib); 6 steps,
-# save_every 2, one run failing at step 4
-RESUME = {"layers": 2, "steps": 6, "save_every": 2, "fail_at": 4,
+# save of the full 30-layer state is 1.6 GB through zlib); 4 steps,
+# save_every 2, one run failing at step 2: two saves, one each side of
+# the failure
+RESUME = {"layers": 2, "steps": 4, "save_every": 2, "fail_at": 2,
           "seq": 512, "batch": 8}
 LM_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
 # dense bf16 tensor-core peak of one H100 SXM at 700 W (NVIDIA's data sheet)
@@ -2441,13 +2465,14 @@ def lm_train(smi: str):
 
 
 def lm_path():
-    """(b) ``launch.path_lm --full --steps 300``."""
+    """(b) ``launch.path_lm --full --steps 100`` (``LM_PATH_STEPS``)."""
     from repro_torch.launch import path_lm as lpath
     t0 = time.perf_counter()
     report, cfg, _ = lpath.run(["--full", "--steps", str(LM_PATH_STEPS),
                                 "--ckpt", "", "--device", LM_DEVICE],
                                log_fn=_quiet)
     line = {"phase": "lm_path", **report,
+            "cut": f"steps 300 -> {LM_PATH_STEPS} (the script's time limit)",
             "seconds": time.perf_counter() - t0,
             "learned_gate": "printed, not gated: last5 < log(vocab) - 1"}
     if not report["last5"] < report["first5"]:
@@ -2461,7 +2486,7 @@ def _dir_bytes(path) -> int:
 
 
 def lm_resume():
-    """(c) fail at step 4 and resume against an uninterrupted run, both
+    """(c) fail at step 2 and resume against an uninterrupted run, both
     under deterministic algorithms."""
     import tempfile
     from dataclasses import replace
@@ -2480,7 +2505,8 @@ def lm_resume():
               device=LM_DEVICE)
     out = {"phase": "lm_resume", "arch": LM_ARCH,
            "cut": f"num_layers 30 -> {RESUME['layers']} (widths as "
-                  "published)", **RESUME}
+                  f"published); {RESUME['steps']} steps, failing at "
+                  f"{RESUME['fail_at']} (the script's time limit)", **RESUME}
     with tempfile.TemporaryDirectory() as d:
         torch.use_deterministic_algorithms(True)
         try:
@@ -2534,14 +2560,14 @@ def lm_resume():
 
 def lm_full_checkpoint(full_state) -> dict:
     """(c), its second part: the full 30-layer state of (a) saved and
-    restored once each, exact.  It runs on a thread beside (b), whose
-    eager steps hold one core: zlib deflates and inflates on another with
-    the GIL released."""
+    restored once each, exact.  It runs on a thread beside (b) and (c)'s
+    resume runs, whose eager steps hold one core: zlib deflates and
+    inflates on another with the GIL released."""
     import tempfile
     import torch
     from repro_torch import checkpoint as ckpt
     from repro_torch.train import loop
-    out = {"full_beside": "(b) lm_path, on a thread"}
+    out = {"full_beside": "(b) lm_path and (c)'s runs, on a thread"}
     full = ckpt._flatten(loop.train_state_tree(full_state))
     before = [t.clone() for _, t in full]
     with tempfile.TemporaryDirectory() as d:
@@ -2654,14 +2680,15 @@ def phase_lm(smi: str) -> None:
     reset_launch_counts()
     line, state = lm_train(smi)
     emit(line)
-    # (c)'s full-state checkpoint, host-bound on one core, beside (b)
+    # (c)'s full-state checkpoint, host-bound on one core, beside (b) and
+    # (c)'s resume runs
     with ThreadPoolExecutor(1) as pool:
         full = pool.submit(lm_full_checkpoint, state)
-        line = lm_path()
+        emit(lm_path())
+        resume = lm_resume()
         full_line = full.result()
-    emit(line)
     del state
-    emit({**lm_resume(), **full_line})
+    emit({**resume, **full_line})
     torch.cuda.empty_cache()
     emit(lm_serve())
     emit(lm_card_vs_cpu())
@@ -2927,6 +2954,403 @@ def phase_families(smi: str) -> None:
         fail(f"the LM families launched an RPQ kernel: {launches}")
 
 
+# -- phase 12 ----------------------------------------------------------------
+# the dense LM on a (data 2, model 2) mesh of 4 x the card
+MESH_SHAPE = {"shards": 4, "model": 2}
+MESH_TRAIN = {"arch": "smollm-135m", "batch": 8, "seq": 1024, "steps": 10,
+              "save_at": 5}
+MESH_SERVE = {"arch": "smollm-135m", "batch": 4, "prompt_len": 1024,
+              "gen": 16, "small_batch": 1, "small_gen": 4}
+MESH_WIDE_SERVE = {"arch": "qwen3-4b", "batch": 2, "prompt_len": 1024,
+                   "gen": 8}
+MESH_WIDE_TRAIN = {"arch": "qwen3-4b", "layers": 2, "batch": 4, "seq": 512,
+                   "steps": 5}
+MESH_GATES = {"loss_step1": 2e-3, "grad_rel_l2": 1e-2, "leaf_rel_l2": 5e-2,
+              "losses": 1e-2, "resume_rtol": 1e-5, "resume_atol": 1e-6}
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _grads(cfg, state, batch, ctx=None):
+    """Step 1's loss and gradient, name -> f32 tensor: one device's moved
+    to the host, a mesh's unsharded on the card (every replica carries
+    the whole)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.models import api
+    from repro_torch.train.step import mesh_grads
+    params = state["params"]
+    if ctx is None:
+        loss, _ = api.loss_fn(params, batch, cfg)
+        named = dict(params.named_parameters())
+        got = dict(zip(named, torch.autograd.grad(loss,
+                                                  list(named.values()))))
+        got = {n: g.cpu() for n, g in got.items()}
+    else:
+        loss, _ = api.loss_fn(params, batch, cfg, ctx)
+        got = {n: shd.unshard(g) for n, g in mesh_grads(params, loss).items()}
+    return float(loss.detach()), got
+
+
+def _compare_grads(g1: dict, gm: dict) -> dict:
+    """Relative L2 errors of the mesh's gradient ``gm`` (on the card)
+    against one device's ``g1`` (on the host), leaf by leaf on the card,
+    in f64 sums."""
+    import torch
+    num = den = 0.0
+    leaf = (0.0, None)
+    for n, b in g1.items():
+        a = gm[n]
+        b = b.to(a.device)
+        d2 = float(torch.linalg.vector_norm(a - b, dtype=torch.float64)) ** 2
+        b2 = float(torch.linalg.vector_norm(b, dtype=torch.float64)) ** 2
+        num, den = num + d2, den + b2
+        leaf = max(leaf, ((d2 / max(b2, 1e-60)) ** 0.5, n))
+    return {"grad_rel_l2": (num / max(den, 1e-60)) ** 0.5,
+            "grad_rel_l2_max_leaf": leaf[0], "worst_leaf": leaf[1]}
+
+
+def _resident(state) -> dict:
+    """Bytes of params + moments each coordinate holds, and what the
+    sanitized specs give for one coordinate (the same for all)."""
+    from repro_torch import sharding as shd
+    held: dict = {}
+    want = 0
+    for tree in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
+        for sh in tree.values():
+            for c, t in sh.parts.items():
+                held[c] = held.get(c, 0) + t.numel() * t.element_size()
+            want += math.prod(shd.local_shape(sh.shape, sh.spec,
+                                              sh.mesh)) * 4
+    logical = sum(math.prod(sh.shape) * 4 for tree in (
+        state["params"], state["opt"]["mu"], state["opt"]["nu"])
+        for sh in tree.values())
+    return {"per_coordinate": [held[c] for c in sorted(held)],
+            "from_specs": want, "logical_total": logical,
+            "share_of_total": want / logical}
+
+
+def _mesh_train_compare(cfg, mesh, B: int, T: int, steps: int,
+                        save_at=None, save_dir=None, profile=False):
+    """The same initial state and batches on one device and on the mesh:
+    step 1's loss and gradient, every step's loss, the mesh's step
+    seconds and collective bytes a step, its resident bytes.  With
+    ``save_at``, the mesh state after that step is saved on a thread
+    (zlib holds no lock) and steps after it run under deterministic
+    algorithms; returns the thread's future, the snapshot and the final
+    mesh state for the resume.  With ``profile``, one more mesh step
+    runs under ``torch.profiler`` (asked of the 2-layer model only: its
+    trace is a tenth of a 30-layer step's, which the profiler's Python
+    post-processing walks event by event)."""
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train import loop, optim
+    from repro_torch.train.step import init_state, make_train_step
+    data = SyntheticLM(cfg.vocab_size, T, B)
+    ocfg = optim.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to(LM_DEVICE)
+                for k, v in data.batch(s).items()}
+
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": B, "seq": T,
+           "steps": steps, "params": cfg.param_count(),
+           "mesh": mesh.shape}
+    clock = {}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        clock[name] = now - t_part
+        t_part = now
+
+    one = init_state(cfg, 0, LM_DEVICE)
+    loss1, g1 = _grads(cfg, one, batch(0))
+    fn = make_train_step(cfg, ocfg)
+    losses1, times1 = [], []
+    for s in range(steps):
+        b = batch(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, m = fn(one, b)
+        losses1.append(float(m["loss"]))
+        times1.append(time.perf_counter() - t0)
+    out["one_device_median_step_s"] = statistics.median(times1[1:])
+    del one, fn
+    _free()
+    lap("one_device")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, 0, LM_DEVICE, mesh=mesh)
+    fn = make_train_step(cfg, ocfg, mesh=mesh)
+    out["replicated_dims"] = api.replicated_dims(
+        cfg, fn.ctx, {n: sh.shape for n, sh in state["params"].items()})
+    out["resident_bytes"] = _resident(state)
+    lap("mesh_init")
+    lossm, gm = _grads(cfg, state, batch(0), fn.ctx)
+    out.update({"loss_step1_one_device": loss1, "loss_step1_mesh": lossm,
+                "loss_step1_diff": abs(loss1 - lossm),
+                **_compare_grads(g1, gm)})
+    del g1, gm
+    lap("mesh_grads")
+    losses, times, moved = [], [], {}
+    saved = snapshot = None
+    for s in range(steps):
+        if save_at is not None and s == save_at:
+            lap("mesh_steps_before_save")
+            snapshot = _to_cpu(loop.train_state_tree(state))
+            lap("snapshot")
+            from repro_torch import checkpoint as ckpt
+            pool = ThreadPoolExecutor(1)
+            saved = (pool, pool.submit(
+                ckpt.save, save_dir, save_at, snapshot,
+                {"data": data.state(save_at)}))
+            torch.use_deterministic_algorithms(True)
+        b = batch(s)
+        torch.cuda.synchronize()
+        shd.reset_collective_bytes()
+        t0 = time.perf_counter()
+        state, m = fn(state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if s == 1:
+            moved = shd.collective_bytes()
+    torch.use_deterministic_algorithms(False)
+    lap("mesh_steps")
+    if profile:
+        out["profile"] = profile_step(fn, state, batch(steps))
+        lap("profile")
+    out["seconds_by_part"] = clock
+    timed = times[1:save_at] if save_at else times[1:]
+    step_s = statistics.median(timed)
+    out.update({
+        "losses_one_device": losses1, "losses_mesh": losses,
+        "losses_max_diff": max(abs(a - b) for a, b in zip(losses1, losses)),
+        "step_s": times, "median_step_s": step_s,
+        "steady_steps": "2-%d, default algorithms" % (save_at or steps),
+        "tokens_per_s": B * T / step_s,
+        "model_tflops_per_s": lm_flops(cfg, B, T) / step_s / 1e12,
+        "flops_formula": FLOPS_FORMULA,
+        "collective_bytes_a_step": moved,
+        "collective_bytes_note": "forward calls of step 2 (remat's "
+        "recompute counted again); autograd's transposes move as much "
+        "again, transposed",
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    res = out["resident_bytes"]
+    if any(b != res["from_specs"] for b in res["per_coordinate"]):
+        fail(f"{cfg.name}: resident bytes differ from the specs: {res}")
+    if out["loss_step1_diff"] > MESH_GATES["loss_step1"] or (
+            out["grad_rel_l2"] > MESH_GATES["grad_rel_l2"]) or (
+            out["grad_rel_l2_max_leaf"] > MESH_GATES["leaf_rel_l2"]):
+        fail(f"{cfg.name}: the mesh's step 1 differs from one device: {out}")
+    if out["losses_max_diff"] > MESH_GATES["losses"]:
+        fail(f"{cfg.name}: the mesh's losses differ from one device: {out}")
+    k = max(1, steps // 2)
+    if not statistics.fmean(losses[-k:]) < statistics.fmean(losses[:k]):
+        fail(f"{cfg.name}: the mesh's loss did not fall: {losses}")
+    return out, saved, snapshot, state, (fn, batch, data)
+
+
+def _mesh_serve(cfg, mesh, B: int, prompt_len: int, gen: int,
+                model=None) -> dict:
+    """Prefill ``B`` prompts and decode ``gen`` greedy tokens on the mesh
+    (serving rules; ``small_batch`` when B is below the data axes) from
+    the one-device model's weights: the mesh's last prefill logits
+    against the one-device prefill's, and decode consistency on the
+    mesh (prefill T + decode 1 against prefill T + 1)."""
+    import numpy as np
+    import torch
+    from repro_torch import sharding as shd
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import api
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    small = B < shd.axes_size(mesh, shd.data_axes(mesh))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t_serve = time.perf_counter()
+    if model is None:
+        model = api.init_params(cfg, 0, LM_DEVICE)
+    prompt = prompt_batch(cfg, B, prompt_len, 0, np.random.default_rng(0),
+                          LM_DEVICE)
+    ml = prompt_len + gen + 6
+    ref, _ = api.prefill_fn(model, prompt, cfg, ml)
+    ref = ref.float()
+    pre = make_prefill_step(cfg, ml, mesh=mesh, small_batch=small)
+    dec = make_serve_step(cfg, mesh=mesh, small_batch=small)
+    params = api.shard_params(model, cfg, pre.ctx, dtype=torch.bfloat16)
+    del model
+    _free()
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+           "prompt_len": prompt_len, "gen": gen, "small_batch": small,
+           "mesh": mesh.shape, "setup_s": time.perf_counter() - t0,
+           "replicated_dims": api.replicated_dims(
+               cfg, pre.ctx, {n: sh.shape for n, sh in params.items()})}
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, cache = pre(params, prompt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = shd.unshard(logits).float()
+    err = float((got - ref).abs().max())
+    bound = 0.1 * float(ref.abs().max()) + 0.06
+    out.update({"prefill_s": times, "prefill_vs_one_device": {
+        "max_abs_err": err, "bound": bound,
+        "formula": "0.1 * max|ref| + 0.06"},
+        "cache_spec": list(cache["kv"]["k"].spec),
+        "cache_part_shape": list(next(iter(
+            cache["kv"]["k"].parts.values())).shape)})
+    cur = torch.argmax(got, dim=-1)[:, None]
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        logits, cache = dec(params, cache, cur)
+        cur = torch.argmax(shd.unshard(logits), dim=-1)[:, None]
+        toks.append(cur)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out.update({"decode_ms_per_token": dt / gen * 1e3,
+                "decode_tokens_per_s": B * gen / dt,
+                "sample": torch.cat(toks, 1)[0].tolist()})
+    # decode consistency on the mesh
+    nxt = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (B, 1))).to(LM_DEVICE)
+    toks = prompt["tokens"]
+    full, _ = pre(params, {"tokens": torch.cat([toks, nxt], 1)})
+    _, cache = pre(params, prompt)
+    step, _ = dec(params, cache, nxt)
+    full, step = shd.unshard(full).float(), shd.unshard(step).float()
+    out["decode_consistency"] = {
+        "max_abs_err": float((step - full).abs().max()),
+        "bound": 0.1 * float(full.abs().max()) + 0.06}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params, cache
+    _free()
+    out["seconds"] = time.perf_counter() - t_serve
+    for k in ("prefill_vs_one_device", "decode_consistency"):
+        if not out[k]["max_abs_err"] < out[k]["bound"]:
+            fail(f"{cfg.name} on the mesh: {k} {out[k]}")
+    return out
+
+
+def phase_lm_mesh(smi: str) -> None:
+    """Phase 12: the dense LM on a (data 2, model 2) mesh of 4 x the card
+    (``launch.mesh.make_host_mesh(model=2, shards=4)``), seeded random
+    weights: (a) smollm-135m at its published size trains 10 steps
+    against a one-device run from the same state and batches, saves at
+    step 5 (on a thread), serves at B = 4 and at B = 1 (``small_batch``)
+    and, last, restores the step-5 checkpoint onto the mesh and resumes
+    against the uninterrupted run; (b) qwen3-4b at its published widths
+    serves at 36 layers and trains 5 steps at 2 layers.  The RPQ
+    kernels' counts are set to 0 before and read after."""
+    import tempfile
+    from dataclasses import replace
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import loop
+    t_phase = time.perf_counter()
+
+    def emit_at(line: dict) -> None:
+        emit({**line, "at_s": time.perf_counter() - t_phase})
+
+    print(smi, flush=True)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(model=MESH_SHAPE["model"],
+                          shards=MESH_SHAPE["shards"], device=LM_DEVICE)
+    cfg = get_config(MESH_TRAIN["arch"])
+    with tempfile.TemporaryDirectory() as d:
+        train, saved, snapshot, state, (fn, batch, data) = \
+            _mesh_train_compare(cfg, mesh, MESH_TRAIN["batch"],
+                                MESH_TRAIN["seq"], MESH_TRAIN["steps"],
+                                MESH_TRAIN["save_at"], d)
+        emit_at({"phase": "lm_mesh_train", "device": smi, **train,
+              "gates": MESH_GATES})
+        straight = loop.train_state_tree(state)     # unsharded, on the card
+        emit_at({"phase": "lm_mesh_serve", "device": smi, **_mesh_serve(
+            cfg, mesh, MESH_SERVE["batch"], MESH_SERVE["prompt_len"],
+            MESH_SERVE["gen"])})
+        emit_at({"phase": "lm_mesh_serve", "device": smi, **_mesh_serve(
+            cfg, mesh, MESH_SERVE["small_batch"], MESH_SERVE["prompt_len"],
+            MESH_SERVE["small_gen"])})
+        wide = get_config(MESH_WIDE_SERVE["arch"])
+        emit_at({"phase": "lm_mesh_serve", "device": smi, **_mesh_serve(
+            wide, mesh, MESH_WIDE_SERVE["batch"],
+            MESH_WIDE_SERVE["prompt_len"], MESH_WIDE_SERVE["gen"])})
+        cut = replace(wide, num_layers=MESH_WIDE_TRAIN["layers"])
+        line, _, _, wstate, _ = _mesh_train_compare(
+            cut, mesh, MESH_WIDE_TRAIN["batch"], MESH_WIDE_TRAIN["seq"],
+            MESH_WIDE_TRAIN["steps"], profile=True)
+        del wstate
+        _free()
+        emit_at({"phase": "lm_mesh_train", "device": smi, **line,
+              "cut": f"num_layers {wide.num_layers} -> "
+                     f"{MESH_WIDE_TRAIN['layers']} (widths as published)",
+              "gates": MESH_GATES})
+
+        # the step-5 checkpoint onto the mesh, then steps 6-10 again
+        pool, fut = saved
+        t0 = time.perf_counter()
+        fut.result()
+        pool.shutdown()
+        resume = {"save_wait_s": time.perf_counter() - t0,
+                  "bytes_on_disk": _dir_bytes(d)}
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            extra = loop.restore_train_state(d, state)
+            torch.cuda.synchronize()
+            resume["restore_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = ckpt._flatten(loop.train_state_tree(state))
+            resume["restore_exact"] = all(
+                torch.equal(x.cpu(), y) for (_, x), (_, y) in
+                zip(got, ckpt._flatten(snapshot)))
+            resume["restore_check_s"] = time.perf_counter() - t0
+            start = int(extra["data"]["step"])
+            t0 = time.perf_counter()
+            for s in range(start, MESH_TRAIN["steps"]):
+                state, m = fn(state, batch(s))
+                float(m["loss"])
+            resume["resumed_steps_s"] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        worst = 0.0
+        close = True
+        for (k, x), (_, y) in zip(
+                ckpt._flatten(loop.train_state_tree(state)),
+                ckpt._flatten(straight)):
+            x, y = x.double(), y.double()
+            close &= bool(torch.allclose(x, y, rtol=MESH_GATES["resume_rtol"],
+                                         atol=MESH_GATES["resume_atol"]))
+            worst = max(worst, float((x - y).abs().max()))
+        resume.update({"resumed_from": start, "max_abs_diff": worst,
+                       "within_rtol_atol": close})
+    emit_at({"phase": "lm_mesh_resume", "device": smi, **resume})
+    if not resume["restore_exact"]:
+        fail("the mesh's restore is not bit for bit the saved state")
+    if start != MESH_TRAIN["save_at"] or not close:
+        fail(f"the resumed mesh run differs from the uninterrupted one: "
+             f"{resume}")
+    del state, snapshot, straight
+    _free()
+    launches = launch_counts()
+    emit({"phase": "lm_mesh", "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    if any(launches.values()):
+        fail(f"the LM mesh launched an RPQ kernel: {launches}")
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -3158,6 +3582,7 @@ def main() -> int:
     emit(front)
     phase_lm(smi_line())
     phase_families(smi_line())
+    phase_lm_mesh(smi_line())
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],

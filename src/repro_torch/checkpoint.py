@@ -38,6 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .sharding import shard
+
 DEFAULT_CODEC = "zlib"
 
 
@@ -251,16 +253,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, target_state, step: Optional[int] = None,
-            device=None, verify: bool = False):
+            device=None, verify: bool = False, shardings=None):
     """Restore into the structure of ``target_state`` (a tree whose leaves
     have a ``shape``: tensors, numpy arrays, or any stand-in).  Returns
     (state, extra), the state's leaves tensors on ``device`` (``None``
     means ``"cuda"``, see :func:`repro_torch.kernels.ops.resolve_device`).
-    Elastic restore onto another mesh is building the engine on that mesh
-    and loading this state into it (``GraphStats.from_state``,
-    ``load_overlay``)."""
+    ``shardings``: optional matching tree of
+    :class:`~repro_torch.sharding.Placement` (mesh, spec) or ``None``: a
+    placed leaf comes back :class:`~repro_torch.sharding.Sharded` on that
+    mesh, each coordinate given its slice of the bytes read (elastic
+    resharding: the mesh and layout are a restore-time choice).  Elastic
+    restore of an engine is building it on the mesh and loading this
+    state into it (``GraphStats.from_state``, ``load_overlay``)."""
     from .kernels.ops import resolve_device
     dev = resolve_device(device)
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -285,5 +292,11 @@ def restore(ckpt_dir: str, target_state, step: Optional[int] = None,
         if shape != want:
             raise ValueError(f"{key}: checkpoint shape {tuple(shape)} != "
                              f"target {tuple(want)}")
-        leaves[key] = _tensor(buf, shape, meta["dtype"], dev)
+        at = placed.get(key)
+        if at is None:
+            leaves[key] = _tensor(buf, shape, meta["dtype"], dev)
+        else:
+            leaves[key] = shard(_tensor(buf, shape, meta["dtype"],
+                                        torch.device("cpu")), at.mesh,
+                                at.spec)
     return _unflatten(target_state, leaves), manifest["extra"]

@@ -15,6 +15,7 @@ import torch
 
 from .core.ring import LabeledGraph
 from .core.stats import GraphStats
+from .sharding import Placement, Sharded, shard, unshard
 
 
 def graph_from_reference(g: Any) -> LabeledGraph:
@@ -45,6 +46,9 @@ def stats_from_reference(state: Dict[str, Any]) -> GraphStats:
 def _stack(items, like):
     if isinstance(like, torch.Tensor):
         return torch.stack(items)
+    if isinstance(like, Placement):
+        # one layout for every layer, behind the stacked layer axis
+        return Placement(like.mesh, (None,) + tuple(like.spec))
     return np.stack([np.asarray(a) for a in items])
 
 
@@ -107,14 +111,22 @@ def lm_flat(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def lm_params_to_reference(model) -> Dict[str, Any]:
-    """A port model (or its ``state_dict()``) as the reference's parameter
-    pytree of f32 numpy arrays, layers stacked."""
+    """A port model (or its ``state_dict()``, or a mesh's dict of
+    :class:`~repro_torch.sharding.Sharded`, unsharded) as the reference's
+    parameter pytree of f32 numpy arrays, layers stacked."""
     state = model.state_dict() if hasattr(model, "state_dict") else model
-    return lm_tree({n: t.detach().cpu().numpy() for n, t in state.items()})
+    return lm_tree({n: (unshard(t) if isinstance(t, Sharded) else t)
+                    .detach().cpu().numpy() for n, t in state.items()})
 
 
-def lm_params_from_reference(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def lm_params_from_reference(tree: Dict[str, Any], mesh=None,
+                             specs=None) -> Dict[str, Any]:
     """The reference's parameter pytree (numpy arrays, stacked layers) as a
-    port ``state_dict`` on the CPU, for ``model.load_state_dict``."""
-    return {n: torch.from_numpy(np.array(a, dtype=np.float32))
-            for n, a in lm_flat(tree).items()}
+    port ``state_dict`` on the CPU, for ``model.load_state_dict``; with
+    a ``mesh`` and ``specs`` (name -> spec dividing the leaf, e.g. the
+    sanitized ``api.param_specs``), each leaf sharded onto the mesh."""
+    out = {n: torch.from_numpy(np.array(a, dtype=np.float32))
+           for n, a in lm_flat(tree).items()}
+    if mesh is None:
+        return out
+    return {n: shard(t, mesh, specs[n]) for n, t in out.items()}

@@ -1,7 +1,13 @@
-"""Training launcher, the JAX package's ``launch/train.py`` on one device.
+"""Training launcher, the JAX package's ``launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-        --steps 200 --seq 256 --batch 8 [--ckpt artifacts/run1] [--smoke]
+        --steps 200 --seq 256 --batch 8 [--ckpt artifacts/run1] [--smoke] \\
+        [--model-axis 2] [--shards 4]
+
+With ``--model-axis`` or ``--shards`` it trains on a ``("data",
+"model")`` mesh from ``launch.mesh.make_host_mesh``: over every visible
+card, or ``--shards`` repeats of the one device (the dense family);
+with neither, on one device.
 
 Trains on ``SyntheticLM`` from a random init: any decoder-only family
 (dense, moe, ssm, hybrid); a vlm or encdec batch needs patches or
@@ -21,6 +27,7 @@ from typing import Optional, Sequence
 from ..configs import get_config, smoke_variant
 from ..data.pipeline import SyntheticLM
 from ..train import loop, optim
+from .mesh import add_mesh_args, mesh_from_args
 
 
 def parser() -> argparse.ArgumentParser:
@@ -36,6 +43,7 @@ def parser() -> argparse.ArgumentParser:
                     help="reduced same-family config (CPU-friendly)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
+    add_mesh_args(ap)
     return ap
 
 
@@ -57,7 +65,7 @@ def run(argv: Optional[Sequence[str]] = None, log_fn=print):
                                   warmup_steps=max(1, args.steps // 20),
                                   total_steps=args.steps),
         ckpt_dir=args.ckpt, save_every=args.save_every, log_every=10,
-        log_fn=log_fn, device=args.device)
+        log_fn=log_fn, device=args.device, mesh=mesh_from_args(args))
     return cfg, rep
 
 

@@ -2,7 +2,8 @@
 surface for the launchers, the trainer and the server, for every family
 (dense, moe, vlm, ssm, hybrid, encdec).
 
-  init_params / loss_fn / prefill_fn / decode_fn / init_cache
+  init_params / param_specs / shard_params / loss_fn / prefill_fn /
+  decode_fn / init_cache / cache_specs / batch_specs
 
 Parameters are a :class:`~repro_torch.models.transformer.Transformer`
 module, or an :class:`~repro_torch.models.encdec.EncDec` for the encdec
@@ -13,19 +14,31 @@ card; the CPU runs only when the caller asks for it.
 Batches: ``tokens`` and ``labels`` [B, T]; a vlm batch adds
 ``patch_embeds`` [B, Np, d] and ``mask`` [B, Np + T] (labels cover the
 prefix too, masked out), an encdec batch ``frames`` [B, S, d].
+
+On a mesh (``ctx=ShardCtx(mesh, rules)``, the dense family) the
+parameters are :func:`shard_params`'s dict of
+:class:`~repro_torch.sharding.Sharded`, a batch's tensors are global
+(each is laid out by :func:`batch_specs`) or already laid out so, and
+the logits come back sharded ``("batch", "vocab")``.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+import functools
+import logging
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
 
+from .. import sharding as shd
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
 from . import encdec as ed
 from . import transformer as tf
-from .losses import softmax_xent
+from .common import NO_SHARD, ShardCtx
+from .losses import softmax_xent, softmax_xent_sharded
+
+log = logging.getLogger(__name__)
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -41,9 +54,79 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> nn.Module:
     return tf.Transformer(cfg, seed=seed, device=dev)
 
 
-def loss_fn(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def param_specs(cfg: ModelConfig, rules) -> Dict[str, shd.Spec]:
+    """Specs keyed by parameter name (the dense family)."""
+    return tf.param_specs(cfg, rules)
+
+
+def cache_specs(cfg: ModelConfig, rules):
+    return tf.cache_specs(cfg, rules)
+
+
+def batch_specs(cfg: ModelConfig, rules):
+    s = functools.partial(shd.spec, rules)
+    if cfg.family == "encdec":
+        return {"frames": s("batch", None, None), "tokens": s("batch", None),
+                "labels": s("batch", None)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": s("batch", None, None),
+                "tokens": s("batch", None), "labels": s("batch", None),
+                "mask": s("batch", None)}
+    return {"tokens": s("batch", None), "labels": s("batch", None)}
+
+
+_LOGGED = set()
+
+
+def shard_params(model, cfg: ModelConfig, ctx: ShardCtx,
+                 dtype: Optional[torch.dtype] = None,
+                 requires_grad: bool = False) -> Dict[str, shd.Sharded]:
+    """``model``'s parameters (a module, or a dict of name -> tensor)
+    laid out on ``ctx.mesh`` by :func:`param_specs`, sanitized: a dim
+    whose axes do not divide it is replicated (logged once a config and
+    mesh).  Each coordinate receives a copy of its slice only, in
+    ``dtype`` if given (serving: bf16)."""
+    flat = dict(model.named_parameters()) if isinstance(model, nn.Module) \
+        else model
+    specs = param_specs(cfg, ctx.rules)
+    out = {}
+    for name, t in flat.items():
+        sp = shd.sanitize_spec(specs[name], t.shape, ctx.mesh)
+        out[name] = shd.shard(t.detach(), ctx.mesh, sp, dtype)
+        if requires_grad:
+            for part in out[name].parts.values():
+                part.requires_grad_(True)
+    key = (cfg.name, tuple(ctx.mesh.shape.items()))
+    if key not in _LOGGED:
+        _LOGGED.add(key)
+        dropped = replicated_dims(cfg, ctx, {n: t.shape
+                                             for n, t in flat.items()})
+        if dropped:
+            log.info("%s on mesh %s: replicated dims (name, dim, size, "
+                     "axes) %s", cfg.name, ctx.mesh.shape, dropped)
+    return out
+
+
+def replicated_dims(cfg: ModelConfig, ctx: ShardCtx, shapes) -> list:
+    """(name, dim, size, axes) of each parameter dim the rules split but
+    the mesh's axes do not divide (replicated instead); ``shapes``: name
+    -> shape."""
+    specs = param_specs(cfg, ctx.rules)
+    return [(n, i, shp[i], specs[n][i]) for n, shp in shapes.items()
+            for i in shd.replicated_dims(specs[n], shp, ctx.mesh)]
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            ctx: ShardCtx = NO_SHARD):
     """Returns (loss, metrics); a moe loss adds ``MOE_AUX_WEIGHT`` times
-    the load-balance loss, reported as ``moe_aux``."""
+    the load-balance loss, reported as ``moe_aux``.  On a mesh the loss
+    is the vocab-parallel cross-entropy over every coordinate's rows."""
+    if ctx.mesh is not None:
+        tf.check_mesh_family(cfg)
+        logits, _, _ = tf.forward(model, cfg, batch["tokens"], ctx=ctx)
+        loss, n = softmax_xent_sharded(
+            logits, ctx.local(batch["labels"], "batch", None))
+        return loss, {"xent": loss.detach(), "tokens": n}
     if cfg.family == "encdec":
         enc_out = ed.encode(model, batch["frames"], cfg)
         logits, _ = ed.decode(model, batch["tokens"], enc_out, cfg)
@@ -62,12 +145,25 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
                                          "moe_aux": aux.detach()}
 
 
+def _last(logits: shd.Sharded) -> shd.Sharded:
+    return shd.Sharded({c: t[:, -1] for c, t in logits.parts.items()},
+                       (logits.shape[0], logits.shape[2]),
+                       (logits.spec[0], logits.spec[2]), logits.mesh)
+
+
 @torch.no_grad()
 def prefill_fn(model: Model, batch: Dict[str, torch.Tensor],
-               cfg: ModelConfig, max_len: int):
+               cfg: ModelConfig, max_len: int, ctx: ShardCtx = NO_SHARD):
     """Run the full prompt (and a vlm's patches, an encdec's frames),
-    build the decode cache.  Returns (logits_last, cache)."""
+    build the decode cache.  Returns (logits_last, cache); on a mesh the
+    cache rests as :func:`cache_specs` lays it out."""
     tokens = batch.get("tokens")
+    if ctx.mesh is not None:
+        dev = shd.device(ctx.mesh, shd.coords(ctx.mesh)[0])
+        cache = tf.init_cache(cfg, tokens.shape[0], max_len, dev, ctx=ctx)
+        logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache,
+                                      ctx=ctx)
+        return _last(logits), cache
     if cfg.family == "encdec":
         enc_out = ed.encode(model, batch["frames"], cfg)
         cache = ed.init_cache(cfg, tokens.shape[0], max_len,
@@ -83,8 +179,13 @@ def prefill_fn(model: Model, batch: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def decode_fn(model: Model, cache, tokens: torch.Tensor, cfg: ModelConfig):
+def decode_fn(model: Model, cache, tokens: torch.Tensor, cfg: ModelConfig,
+              ctx: ShardCtx = NO_SHARD):
     """One decode step: tokens [B, 1].  Returns (logits [B, V], cache)."""
+    if ctx.mesh is not None:
+        logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache,
+                                      ctx=ctx)
+        return _last(logits), cache
     if cfg.family == "encdec":
         logits, cache = ed.decode(model, tokens, None, cfg, cache=cache)
     else:
@@ -93,8 +194,8 @@ def decode_fn(model: Model, cache, tokens: torch.Tensor, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
-               enc_len: int = 1024):
+               enc_len: int = 1024, ctx: ShardCtx = NO_SHARD):
     dev = resolve_device(device)
     if cfg.family == "encdec":
         return ed.init_cache(cfg, batch, max_len, enc_len, dev)
-    return tf.init_cache(cfg, batch, max_len, dev)
+    return tf.init_cache(cfg, batch, max_len, dev, ctx=ctx)

@@ -1,17 +1,59 @@
-"""Shared model utilities: norms, rope, inits.
+"""Shared model utilities: the shard context, norms, rope, inits — the
+JAX package's ``models/common.py``.
 
-The JAX package's ``models/common.py`` without its ``ShardCtx``: this
-package runs the LM on one device (the mesh counterpart comes with a
-port of ``sharding.py``).  The casts are the reference's, written out:
-torch rounds after every op, so each ``astype`` of the reference is an
-explicit ``.to(dtype)`` here and nothing is left to ``autocast``.
+The casts are the reference's, written out: torch rounds after every
+op, so each ``astype`` of the reference is an explicit ``.to(dtype)``
+here and nothing is left to ``autocast``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import sharding as shd
+
+
+@dataclass
+class ShardCtx:
+    """Carries (mesh, logical rules).  With a mesh, the model runs on
+    every coordinate of it (``repro_torch.sharding``): ``ctx.axes(name,
+    size)`` names the mesh axes a logical dimension of ``size`` is split
+    over, and ``ctx.local(tensor, *names)`` lays a global tensor out by
+    logical names.  ``NO_SHARD`` (no mesh) is the one-device path."""
+
+    mesh: Optional[object] = None
+    rules: Optional[dict] = None
+
+    def axes(self, name: Optional[str], size: int) -> Tuple[str, ...]:
+        """The mesh axes logical ``name`` maps to, () when the rules
+        replicate it or its axes do not divide ``size``."""
+        if name is None or self.mesh is None:
+            return ()
+        return shd.entry_axes(shd.sanitize_spec(
+            shd.spec(self.rules, name), (size,), self.mesh)[0])
+
+    def spec(self, shape: Sequence[int], *names: Optional[str]) -> shd.Spec:
+        """The sanitized spec of a tensor of ``shape`` with logical
+        ``names``."""
+        return shd.sanitize_spec(shd.spec(self.rules, *names), shape,
+                                 self.mesh)
+
+    def local(self, x, *names: Optional[str]) -> shd.Sharded:
+        """``x`` laid out by logical ``names``: a global tensor is
+        sharded, a :class:`~repro_torch.sharding.Sharded` one must
+        already have that layout."""
+        sp = self.spec(x.shape, *names)
+        if isinstance(x, shd.Sharded):
+            if x.spec != sp:
+                raise ValueError(f"input laid out as {x.spec}, not {sp}")
+            return x
+        return shd.shard(x, self.mesh, sp)
+
+
+NO_SHARD = ShardCtx()
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):

@@ -26,6 +26,26 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
+def attention_specs(cfg, s):
+    """Specs of an attention's weights by logical names (``s``: a spec
+    function of the rules), the reference's table."""
+    p = {
+        "wq": s("fsdp", "heads", None),
+        "wk": s("fsdp", "kv_heads", None),
+        "wv": s("fsdp", "kv_heads", None),
+        "wo": s("heads", None, "fsdp"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = s(None)
+        p["k_norm"] = s(None)
+    return p
+
+
+def mlp_specs(s):
+    return {"wg": s("fsdp", "ffn"), "wu": s("fsdp", "ffn"),
+            "wd": s("ffn", "fsdp")}
+
+
 def _online_softmax_chunk(qg, k, v, mask, carry):
     """One flash step: qg [B,K,G,Tq,Dh], k/v [B,K,Tc,Dh], mask [Tq,Tc]
     additive f32.  carry = (m, l, acc): [B,K,G,Tq], [B,K,G,Tq],
@@ -184,9 +204,11 @@ def attention_block(p: Dict[str, torch.Tensor], x, cfg, rope,
     ``common.rope_tables`` (cos, sin) of the positions, in bf16.
     ``cache``: None or dict(k, v: [B, S, K, Dh], len: int); the new keys
     and values are written into it at ``len`` in place (decode: T new
-    tokens, usually 1).  Returns (out, new_cache)."""
+    tokens, usually 1).  The head counts are the weights' (on a mesh, a
+    coordinate's local heads).  Returns (out, new_cache): on a mesh
+    with the heads split, ``out`` is this coordinate's partial sum."""
     B, T, d = x.shape
-    H, K, Dh = cfg.eff_num_heads, cfg.eff_num_kv_heads, cfg.head_dim
+    H, K, Dh = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     xc = x.to(torch.bfloat16)
     q = torch.matmul(xc, p["wq"].reshape(d, H * Dh)).reshape(B, T, H, Dh)
     k = torch.matmul(xc, p["wk"].reshape(d, K * Dh)).reshape(B, T, K, Dh)
@@ -232,7 +254,9 @@ def attention_block(p: Dict[str, torch.Tensor], x, cfg, rope,
 # SwiGLU MLP
 # --------------------------------------------------------------------------
 def mlp_block(p: Dict[str, torch.Tensor], x):
-    """``p``: the layer's MLP weights in bf16."""
+    """``p``: the layer's MLP weights in bf16 (on a mesh with the ffn dim
+    split, a coordinate's columns of ``wg``/``wu`` and rows of ``wd``: the
+    output is its partial sum)."""
     xc = x.to(torch.bfloat16)
     g = torch.matmul(xc, p["wg"])
     u = torch.matmul(xc, p["wu"])

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding as shd
+
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     """logits: [B, T, V]; labels: [B, T] int; mask: [B, T] (1 = count).
@@ -21,3 +23,42 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     mask = mask.float()
     n = torch.clamp(mask.sum(), min=1.0)
     return (per_tok * mask).sum() / n, n
+
+
+def softmax_xent_sharded(logits, labels):
+    """The vocab-parallel :func:`softmax_xent` (mean over every position)
+    on a mesh: ``logits`` :class:`~repro_torch.sharding.Sharded`
+    ``("batch", None, "vocab")``, ``labels`` laid out like its rows.
+    Each coordinate reduces its vocab shard: the max and the sum of
+    ``exp`` are all-reduced over the vocab axes, and the label logit
+    comes from the shard that owns the label (the others add 0), so no
+    coordinate holds more than its ``[B, T, V / model]`` f32 slice.
+    Returns (mean_loss on the first coordinate's device, ntokens)."""
+    mesh = logits.mesh
+    vocab = shd.entry_axes(logits.spec[2])
+    rows = shd.entry_axes(logits.spec[0])
+    lg = {c: t.float() for c, t in logits.parts.items()}
+    m = shd.all_reduce({c: t.amax(dim=-1, keepdim=True).detach()
+                        for c, t in lg.items()}, mesh, vocab, "max")
+    se = shd.all_reduce({c: torch.exp(t - m[c]).sum(dim=-1)
+                         for c, t in lg.items()}, mesh, vocab)
+    picked = {}
+    for c, t in lg.items():
+        Vl = t.shape[-1]
+        loc = labels.parts[c].long() - shd.index(mesh, c, vocab) * Vl
+        mine = (loc >= 0) & (loc < Vl)
+        got = torch.gather(t, -1, loc.clamp(0, Vl - 1)[..., None])[..., 0]
+        picked[c] = got.masked_fill(~mine, 0.0)
+    picked = shd.all_reduce(picked, mesh, vocab)
+    # one coordinate a batch shard, in shard order: each row counts once
+    others = tuple(a for a in mesh.axis_names if a not in rows)
+    owners = sorted((c for c in lg if shd.index(mesh, c, others) == 0),
+                    key=lambda c: shd.index(mesh, c, rows))
+    dev = shd.device(mesh, owners[0])
+    total = None
+    for c in owners:
+        per_tok = torch.log(se[c]) + m[c][..., 0] - picked[c]
+        part = per_tok.sum().to(dev)
+        total = part if total is None else total + part
+    n = logits.shape[0] * logits.shape[1]
+    return total / n, n

@@ -9,6 +9,13 @@ dense, moe, vlm, ssm and hybrid families.
   vlm    — dense backbone + precomputed patch-embedding prefix with
            prefix-LM (bidirectional prefix) masking       (paligemma)
 
+On a mesh (``ctx=ShardCtx(mesh, rules)``, the dense family), the
+parameters are a dict of :class:`~repro_torch.sharding.Sharded` keyed by
+the module's names, laid out by :func:`param_specs`, and every
+coordinate computes on its own batch rows and weight shards, as the
+reference's ``with_sharding_constraint`` points make XLA partition it
+(see :func:`_mesh_forward`).
+
 The reference stacks its layers on a leading L axis and runs them with
 ``lax.scan`` under ``jax.checkpoint(nothing_saveable)``; here the layers
 are an ``nn.ModuleList`` run in a loop, each under
@@ -29,9 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import init_dense, rms_norm, rope_tables
-from .layers import (attention_block, mlp_block, moe_block,
-                     moe_block_dropless)
+from .. import sharding as shd
+from .common import NO_SHARD, ShardCtx, init_dense, rms_norm, rope_tables
+from .layers import (attention_block, attention_specs, mlp_block,
+                     mlp_specs, moe_block, moe_block_dropless)
 from .ssm import Mamba, init_mamba_state, mamba_block
 
 
@@ -215,13 +223,21 @@ def _kv_slot(cache, i, start):
 def forward(model: Transformer, cfg, tokens: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None,
             positions: Optional[torch.Tensor] = None,
-            prefix_embeds: Optional[torch.Tensor] = None):
+            prefix_embeds: Optional[torch.Tensor] = None,
+            ctx: ShardCtx = NO_SHARD):
     """Returns (logits [B, T, V] bf16, new_cache, aux_loss).
 
     ``cache`` (decode): see :func:`init_cache`; its tensors are written in
     place and its ``len`` advanced.  ``prefix_embeds``: [B, Np, d] (vlm),
-    prepended before the tokens.
+    prepended before the tokens.  On a mesh (``ctx.mesh``), ``model`` is
+    a dict of sharded parameters, ``tokens`` a global tensor or one laid
+    out ``("batch", None)``, and the logits are
+    :class:`~repro_torch.sharding.Sharded` ``("batch", None, "vocab")``.
     """
+    if ctx.mesh is not None:
+        if prefix_embeds is not None or positions is not None:
+            raise NotImplementedError("the mesh path takes tokens only")
+        return _mesh_forward(model, cfg, ctx, tokens, cache)
     bf = torch.bfloat16
     parts = []
     if prefix_embeds is not None:
@@ -308,14 +324,32 @@ def init_kv(cfg, layers: int, batch: int, max_len: int, device=None):
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
+def init_cache(cfg, batch: int, max_len: int, device=None,
+               ctx: ShardCtx = NO_SHARD) -> Dict[str, Any]:
     """Decode cache: ``kv`` (attention families: one slot a layer; the
     hybrid: one a group), ``ssm`` (ssm, hybrid: each layer's conv buffers
     and state) and the filled length ``len`` (a host int: the reference
     also keeps a per-layer copy for its scan, which a loop does not
-    need)."""
+    need).  On a mesh, ``k`` and ``v`` are
+    :class:`~repro_torch.sharding.Sharded` by :func:`cache_specs`, each
+    coordinate's part allocated on its device."""
     L = cfg.num_layers
     cache: Dict[str, Any] = {"len": 0}
+    if ctx.mesh is not None:
+        check_mesh_family(cfg)
+        shape = (L, batch, max_len, cfg.eff_num_kv_heads, cfg.head_dim)
+        sp = shd.sanitize_spec(cache_specs(cfg, ctx.rules)["kv"]["k"], shape,
+                               ctx.mesh)
+        lshape = shd.local_shape(shape, sp, ctx.mesh)
+
+        def zeros():
+            return shd.Sharded(
+                {c: torch.zeros(lshape, dtype=torch.bfloat16,
+                                device=shd.device(ctx.mesh, c))
+                 for c in shd.coords(ctx.mesh)}, shape, sp, ctx.mesh)
+
+        cache["kv"] = {"k": zeros(), "v": zeros()}
+        return cache
     if cfg.family in ("dense", "moe", "vlm"):
         cache["kv"] = init_kv(cfg, L, batch, max_len, device)
     else:
@@ -324,3 +358,253 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict[str, Any]:
             cache["kv"] = init_kv(cfg, L // cfg.attn_period, batch, max_len,
                                   device)
     return cache
+
+
+# --------------------------------------------------------------------------
+# specs (the mesh layout, by logical names)
+# --------------------------------------------------------------------------
+def check_mesh_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the LM runs on a mesh for the dense family; "
+            f"{cfg.family!r} runs on one device")
+
+
+def _dotted(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def param_specs(cfg, rules) -> Dict[str, shd.Spec]:
+    """Specs keyed by the module's parameter names, in its order (the
+    reference's ``param_specs``, whose stacked layers add a leading
+    ``None``)."""
+    check_mesh_family(cfg)
+    s = functools.partial(shd.spec, rules)
+    layer = _dotted({"ln1": s(None), "attn": attention_specs(cfg, s),
+                     "ln2": s(None), "mlp": mlp_specs(s)})
+    out = {"embed": s("vocab", "fsdp")}
+    for i in range(cfg.num_layers):
+        out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    out["final_norm"] = s(None)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = s("fsdp", "vocab")
+    return out
+
+
+def cache_specs(cfg, rules) -> Dict[str, Any]:
+    """Specs of :func:`init_cache`'s tree (``k``/``v`` stacked on layers;
+    the reference's per-layer ``len`` has no counterpart here)."""
+    check_mesh_family(cfg)
+    s = functools.partial(shd.spec, rules)
+    kv = s(None, "cache_batch", "cache_seq", "cache_heads", None)
+    return {"len": s(), "kv": {"k": kv, "v": kv}}
+
+
+# --------------------------------------------------------------------------
+# the forward on a mesh
+# --------------------------------------------------------------------------
+# the dim of each weight that stays split over the model axis while it is
+# used (tensor parallelism); every other split dim is fsdp's, gathered
+# just before use
+_TP_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "wg": 1, "wu": 1, "wd": 0,
+           "embed": 0, "lm_head": 1}
+
+
+def _gather_fsdp(sh: shd.Sharded, keep: Optional[int]) -> shd.Local:
+    """``sh``'s parts with every split dim but ``keep`` all-gathered."""
+    parts = sh.parts
+    for dim, e in enumerate(sh.spec):
+        if dim != keep and e is not None:
+            parts = shd.all_gather(parts, sh.mesh, shd.entry_axes(e), dim)
+    return parts
+
+
+def _to_residual(y: shd.Local, mesh, partial, seq) -> shd.Local:
+    """A block's output into the residual's layout (split on the sequence
+    over ``seq``): partial sums over ``partial`` are reduce-scattered
+    (all-reduced, then split, if the sequence is not split the same
+    way), in their dtype; a replicated output is split."""
+    if partial:
+        if tuple(partial) == tuple(seq):
+            return shd.reduce_scatter(y, mesh, partial, 1)
+        y = shd.all_reduce(y, mesh, partial)
+    return shd.split(y, mesh, seq, 1)
+
+
+def _heads_axes(attn: Dict[str, shd.Sharded]):
+    """The axes the attention's heads are computed split over: those of
+    ``wq``'s heads when ``wk``'s KV heads are split alike (GQA groups
+    stay whole on a coordinate), else () and every head is computed on
+    every coordinate."""
+    h = shd.entry_axes(attn["wq"].spec[1])
+    return h if h == shd.entry_axes(attn["wk"].spec[1]) else ()
+
+
+def _kv_slots(cache, i, mesh):
+    """Layer ``i``'s cache on each coordinate, all-gathered over the
+    sequence axes it rests on: (k, v, their axes)."""
+    k, v = cache["kv"]["k"], cache["kv"]["v"]
+    ax = shd.entry_axes(k.spec[2])
+    return (shd.all_gather({c: t[i] for c, t in k.parts.items()}, mesh, ax, 1),
+            shd.all_gather({c: t[i] for c, t in v.parts.items()}, mesh, ax, 1),
+            ax)
+
+
+def _write_back(cache, i, full, ax, start: int, T: int, mesh) -> None:
+    """Positions [start, start + T) of the gathered layer ``i`` into the
+    shard of the cache that owns them."""
+    if shd.axes_size(mesh, ax) == 1:
+        return                      # the gathered cache is the cache
+    for name, got in zip(("k", "v"), full):
+        for c, t in cache["kv"][name].parts.items():
+            S_l = t.shape[2]
+            lo = shd.index(mesh, c, ax) * S_l
+            a, b = max(start, lo), min(start + T, lo + S_l)
+            if a < b:
+                t[i, :, a - lo:b - lo] = got[c][:, a:b]
+
+
+def _normed(x, w, cfg):
+    """A block's normed input in bf16, which is all the block reads of it:
+    the sequence all-gather after it moves 2-byte words (a tied model's
+    residual stream is f32)."""
+    return rms_norm(x, w, cfg.norm_eps).to(torch.bfloat16)
+
+
+def _mesh_layer(lw, x: shd.Local, cfg, ctx: ShardCtx, rope, seq,
+                cache, i: int, start: int) -> shd.Local:
+    """One dense layer on every coordinate.  ``lw``: the layer's bf16
+    weights, :class:`~repro_torch.sharding.Sharded`; ``x``: the residual,
+    split on the sequence over ``seq``."""
+    mesh = ctx.mesh
+    cs = list(x)
+    T = next(iter(x.values())).shape[1] * shd.axes_size(mesh, seq)
+    attn = lw["attn"]
+    heads = _heads_axes(attn)
+    w = {n: _gather_fsdp(sh, _TP_DIM.get(n) if heads else None)
+         for n, sh in attn.items()}
+    hn = shd.all_gather({c: _normed(x[c], lw["ln1"].parts[c], cfg)
+                         for c in cs}, mesh, seq, 1)
+    slots = None if cache is None else _kv_slots(cache, i, mesh)
+    y = {}
+    for c in cs:
+        slot = None if slots is None else {
+            "k": slots[0][c], "v": slots[1][c], "len": start}
+        y[c], _ = attention_block({n: t[c] for n, t in w.items()}, hn[c],
+                                  cfg, rope[c], cache=slot)
+    if slots is not None:
+        _write_back(cache, i, slots[:2], slots[2], start, T, mesh)
+    h = _to_residual(y, mesh, heads, seq)
+    x = {c: x[c] + h[c] for c in cs}
+
+    mlp = lw["mlp"]
+    w = {n: _gather_fsdp(sh, _TP_DIM[n]) for n, sh in mlp.items()}
+    hn = shd.all_gather({c: _normed(x[c], lw["ln2"].parts[c], cfg)
+                         for c in cs}, mesh, seq, 1)
+    y = {c: mlp_block({n: t[c] for n, t in w.items()}, hn[c]) for c in cs}
+    h = _to_residual(y, mesh, shd.entry_axes(mlp["wg"].spec[1]), seq)
+    return {c: x[c] + h[c] for c in cs}
+
+
+def _remat_mesh_layer(lw, x, cfg, ctx, rope, seq):
+    return _mesh_layer(lw, x, cfg, ctx, rope, seq, None, 0, 0)
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _embed(params, tok: shd.Sharded, cfg, ctx: ShardCtx) -> shd.Local:
+    """The vocab-parallel lookup: each coordinate looks up the rows of
+    its vocab shard, zeroes the others, and the lookups are all-reduced
+    over the vocab axes (one non-zero term: exact)."""
+    mesh, bf = ctx.mesh, torch.bfloat16
+    sh = params["embed"]
+    vocab = shd.entry_axes(sh.spec[0])
+    table = _gather_fsdp(sh.map(lambda t: t.to(bf)), _TP_DIM["embed"])
+    out = {}
+    for c, ids in tok.parts.items():
+        Vl = table[c].shape[0]
+        loc = ids - shd.index(mesh, c, vocab) * Vl
+        mine = (loc >= 0) & (loc < Vl)
+        out[c] = F.embedding(loc.clamp(0, Vl - 1), table[c]) \
+            .masked_fill(~mine[..., None], 0)
+    out = shd.all_reduce(out, mesh, vocab)
+    if cfg.tie_embeddings:
+        scale = float(np.float32(np.sqrt(cfg.d_model)))
+        out = {c: t.float() * scale for c, t in out.items()}
+    return out
+
+
+def _mesh_forward(params: Dict[str, shd.Sharded], cfg, ctx: ShardCtx,
+                  tokens, cache):
+    """The dense decoder on every coordinate of ``ctx.mesh``, following
+    the reference's constraint points: the embedding's output, each
+    block's output and the final norm's input are split on the sequence
+    over the model axis (``seq_sp``); each block all-gathers its normed
+    input, computes its heads and ffn columns (column-parallel up,
+    row-parallel down, its partial sums reduce-scattered in bf16), its
+    weights all-gathered over the data axes just before use (fsdp); the
+    logits come out split on the vocab (``"batch", None, "vocab"``).
+    With a cache, each layer's KV cache is all-gathered over the axes
+    its sequence rests on and the new positions written back to their
+    owners."""
+    check_mesh_family(cfg)
+    mesh, bf = ctx.mesh, torch.bfloat16
+    tok = ctx.local(tokens, "batch", None)
+    B, T = tok.shape
+    seq = ctx.axes("seq_sp", T)
+    x = shd.split(_embed(params, tok, cfg, ctx), mesh, seq, 1)
+
+    flat = {n[len("layers."):]: sh.map(lambda t: t.to(bf))
+            for n, sh in params.items() if n.startswith("layers.")}
+    layers = _nest(flat)
+    start = int(cache["len"]) if cache is not None else 0
+    rope = {}
+    for c, ids in tok.parts.items():
+        pos = (start + torch.arange(T, device=ids.device))[None, :] \
+            .expand(ids.shape[0], T)
+        rope[c] = rope_tables(pos, cfg.head_dim, cfg.rope_theta, bf)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i in range(cfg.num_layers):
+        lw = layers[str(i)]
+        if remat:
+            x = _remat(_remat_mesh_layer, lw, x, cfg, ctx, rope, seq)
+        else:
+            x = _mesh_layer(lw, x, cfg, ctx, rope, seq, cache, i, start)
+
+    fn = params["final_norm"]
+    xn = shd.all_gather({c: _normed(t, fn.parts[c], cfg)
+                         for c, t in x.items()}, mesh, seq, 1)
+    # a tied head casts and gathers the embedding again, as one device
+    # casts it twice: each use's gradient is cast to f32 on its own
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    sh = params[name]
+    head = _gather_fsdp(sh.map(lambda t: t.to(bf)), _TP_DIM[name])
+    if cfg.tie_embeddings:
+        head = {c: t.t() for c, t in head.items()}
+    vocab = sh.spec[_TP_DIM[name]]
+    logits = shd.Sharded({c: torch.matmul(t, head[c])
+                          for c, t in xn.items()},
+                         (B, T, cfg.vocab_padded), (tok.spec[0], None, vocab),
+                         mesh)
+    new_cache = None
+    if cache is not None:
+        new_cache = dict(cache)
+        new_cache["len"] = start + T
+    aux = torch.zeros((), dtype=torch.float32,
+                      device=shd.device(mesh, shd.coords(mesh)[0]))
+    return logits, new_cache, aux

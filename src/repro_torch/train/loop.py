@@ -1,10 +1,13 @@
-"""Fault-tolerant training loop, the JAX package's ``train/loop.py`` on
-one device: checkpoint/restart, exact data resume, straggler detection,
-simulated-failure hooks for tests.
+"""Fault-tolerant training loop, the JAX package's ``train/loop.py``:
+checkpoint/restart, exact data resume, straggler detection,
+simulated-failure hooks for tests; on one device or on a mesh
+(``mesh=``).
 
 Checkpoints are the JAX package's trainer checkpoints
 (:func:`save_train_state`), the data pipeline's position in their
-``extra``; either package resumes from the other's.
+``extra``; either package resumes from the other's, on any mesh: a
+checkpoint holds logical (unsharded) arrays, a mesh state is unsharded
+to save and each leaf sharded from the bytes read to restore.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from .. import checkpoint as ckpt
+from .. import sharding as shd
 from ..convert import lm_flat, lm_tree
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
@@ -23,15 +27,28 @@ from . import optim
 from .step import init_state, make_train_step
 
 
+def _flat_params(params) -> Dict[str, Any]:
+    return dict(params) if isinstance(params, dict) \
+        else dict(params.named_parameters())
+
+
+def _logical(t):
+    return shd.unshard(t) if isinstance(t, shd.Sharded) else t.detach()
+
+
 def train_state_tree(state) -> Dict[str, Any]:
     """A trainer state ``{"params": model, "opt": {"mu", "nu", "step"}}``
-    (:func:`repro_torch.train.step.init_state`) in the JAX package's
-    layout: keys ``params/layers/attn/wq``, ``opt/mu/embed``, ``opt/step``
-    and so on, the layers stacked on a leading L axis."""
+    (:func:`repro_torch.train.step.init_state`, on one device or a mesh)
+    in the JAX package's layout: keys ``params/layers/attn/wq``,
+    ``opt/mu/embed``, ``opt/step`` and so on, the layers stacked on a
+    leading L axis, every leaf logical (a mesh state is unsharded)."""
     opt = state["opt"]
-    return {"params": lm_tree({n: p.detach() for n, p in
-                               state["params"].named_parameters()}),
-            "opt": {"mu": lm_tree(opt["mu"]), "nu": lm_tree(opt["nu"]),
+
+    def tree(flat):
+        return lm_tree({n: _logical(t) for n, t in flat.items()})
+
+    return {"params": tree(_flat_params(state["params"])),
+            "opt": {"mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
                     "step": opt["step"]}}
 
 
@@ -47,25 +64,44 @@ def save_train_state(ckpt_dir: str, step: int, state,
 def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None,
                         verify: bool = False) -> Dict[str, Any]:
     """Restore a trainer checkpoint of either package into ``state`` in
-    place (the model's parameters, the moments and ``step``, on the
-    model's device).  Returns the checkpoint's ``extra``."""
-    model = state["params"]
-    params = dict(model.named_parameters())
+    place (the model's parameters, the moments and ``step``), on the
+    state's own layout: the model's device, or, for a mesh state
+    (:func:`~repro_torch.train.step.init_state` with ``mesh=``), each
+    leaf sharded by its spec from the bytes read
+    (``checkpoint.restore(shardings=)``), whatever layout saved it.
+    Returns the checkpoint's ``extra``."""
+    params = _flat_params(state["params"])
 
     def shapes(flat):
         return lm_tree({n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                        for n, t in flat.items()})
+
+    def placements(flat):
+        # a stacked group's leaf gets its layers' spec behind a layer axis
+        return lm_tree({n: shd.Placement(t.mesh, t.spec)
                         for n, t in flat.items()})
 
     opt = state["opt"]
     target = {"params": shapes(params),
               "opt": {"mu": shapes(opt["mu"]), "nu": shapes(opt["nu"]),
                       "step": opt["step"]}}
-    dev = next(iter(params.values())).device
-    tree, extra = ckpt.restore(ckpt_dir, target, step, device=dev,
-                               verify=verify)
+    first = next(iter(params.values()))
+    sharded = isinstance(first, shd.Sharded)
+    shardings = None
+    if sharded:
+        shardings = {"params": placements(params),
+                     "opt": {"mu": placements(opt["mu"]),
+                             "nu": placements(opt["nu"]), "step": None}}
+        first = next(iter(first.parts.values()))
+    tree, extra = ckpt.restore(ckpt_dir, target, step, device=first.device,
+                               verify=verify, shardings=shardings)
     with torch.no_grad():
         for name, t in lm_flat(tree["params"]).items():
-            params[name].copy_(t)
+            if sharded:
+                for c, part in params[name].parts.items():
+                    part.copy_(t.parts[c])
+            else:
+                params[name].copy_(t)
     state["opt"] = {"mu": lm_flat(tree["opt"]["mu"]),
                     "nu": lm_flat(tree["opt"]["nu"]),
                     "step": tree["opt"]["step"]}
@@ -98,14 +134,24 @@ def train(
     fail_at_step: Optional[int] = None,   # test hook: simulated preemption
     log_fn: Callable[[str], None] = print,
     device=None,
+    mesh=None,
 ) -> TrainReport:
-    """``device=None`` means ``"cuda"`` and raises without a card.  A step's
-    seconds run from its batch on the device to its loss on the host."""
+    """``device=None`` means ``"cuda"`` and raises without a card.  With a
+    ``mesh`` (of that device kind only), the state lives and the steps
+    run on it.  A step's seconds run from its batch on the device to its
+    loss on the host."""
     dev = resolve_device(device)
+    if mesh is not None:
+        other = sorted({str(d) for d in mesh.devices.flat
+                        if d.type != dev.type})
+        if other:
+            raise ValueError(f"the mesh names {other} but the trainer runs "
+                             f"on {dev.type}")
+        dev = shd.device(mesh, shd.coords(mesh)[0])
     opt_cfg = opt_cfg or optim.AdamWConfig(total_steps=num_steps)
     report = TrainReport()
 
-    state = init_state(cfg, seed, dev)
+    state = init_state(cfg, seed, dev, mesh=mesh)
     start_step = 0
     if ckpt_dir and resume and ckpt.latest_step(ckpt_dir) is not None:
         extra = restore_train_state(ckpt_dir, state)
@@ -113,7 +159,7 @@ def train(
         report.resumed_from = start_step
         log_fn(f"[resume] restored step {start_step} from {ckpt_dir}")
 
-    step_fn = make_train_step(cfg, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, mesh=mesh)
     durations = report.step_seconds
 
     for step in range(start_step, num_steps):
