@@ -6,8 +6,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 or with ``--parent DIR``, a checkout of the parent commit, to load that
-tree's own ``ops.packed_superstep`` too and time it in turns with this
-tree's at every superstep timing point (``parent_ms``, ``turns_ms``).
+tree's own ``ops.packed_superstep``, ``ops.rank1`` and
+``ops.build_rank_directory`` too and time each in turns with this
+tree's at every superstep and rank timing point (``parent_ms``,
+``turns_ms``).
 
 Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
 
@@ -22,7 +24,13 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      unfused superstep it replaced (``unfused_ms``), and with R = 16 BFS
      rows (the dense engine's batch), each held to the plain version on
      the epoch's raw edge arrays, with its bound over the grouped inputs
-     beside the edge pass's bound and the bytes its design moves;
+     beside the edge pass's bound and the bytes its design moves; the
+     rank kernels on random bitvectors up to the ring's level size: the
+     popcounts, the one-launch directory (beside the plain popcounts,
+     ``cumsum`` and ``cat``),
+     ``rank1`` at random and at the same offsets sorted, with the L2
+     sector bytes its design reads, and each kernel's launch floor (one
+     query, one superblock);
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
@@ -55,8 +63,9 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      non-zero words; the path must launch ``packed_superstep`` and
      neither of the other two (phase 4's packed BFS too);
   6. rank: every level of the ring's wavelet trees through the rank
-     kernels: the directory must equal the level's ``sb_rank``, and
-     1,048,576 random ranks the host ``BitVector.rank1``;
+     kernels: the directory (one launch) must equal the level's
+     ``sb_rank``, and 1,048,576 random ranks the host
+     ``BitVector.rank1``;
   7. dense path: ``make_engine(graph, kind="dense")`` on phase 2's graph
      answers phase 2's requests through ``eval_many`` (equal to the
      ring's) and the hub closures, one request a call and in one batch
@@ -88,7 +97,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      the regular requests and the first ``SERVE_HUBS`` hub closures);
      every ``ok`` answer equals ``eval_many`` at its ticket's epoch, and
      each run's ``/flight`` capture replays on a fresh engine with count
-     parity 1.0;
+     parity 1.0; (a)'s line names where its worst overrun settled and
+     the tick that held it, and its longest tick;
  10. the LM (``repro_torch.launch``), smollm-135m at its published
      widths: (a) ``launch.train`` at B = 8, T = 2,048 for 20 steps on
      ``SyntheticLM`` (losses finite and falling; median step seconds,
@@ -138,8 +148,9 @@ Then the ``kernels`` line (each kernel's launches on its path and its
 times at its path's largest launch, the heaviest superstep for
 ``packed_superstep`` and ``segment_or``; for ``nfa_step`` and
 ``packed_superstep`` also a shard's launch on the mesh, for
-``packed_superstep`` the dense path's heaviest R = 16 launch, and for
-``nfa_step`` the serving ring's largest launch)
+``packed_superstep`` the dense path's heaviest R = 16 launch, for
+``nfa_step`` the serving ring's largest launch, for the rank kernels
+the directory, the sorted offsets and the launch floors)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -203,6 +214,11 @@ ROWS_TIMED = 16           # the kernels line's entry at R rows: the first
 FULL_L = 128
 RANK_BITS = (100, 515, 8_192, 40_000, FULL_E)
 RANK_QUERIES = (4_096, 1_048_576)
+# each rank kernel's launch floor: one query, one superblock
+RANK_FLOOR_Q = 1
+RANK_FLOOR_NW = 16
+# a 32-byte sector, the unit in which L2 serves the SMs
+SECTOR_BYTES = 32
 
 # phase 5: hub closures rerun on the host with the plain versions
 HOST_CHECKS = 8
@@ -361,6 +377,40 @@ def popcounts_bound(words):
     return bound(4 * NW + 4 * (NW // 16), NW, POPC_PER_S)
 
 
+def directory_bound(words):
+    """Words read once, the directory (one int32 per superblock and a
+    leading 0) written once; one popcount a word."""
+    NW = words.shape[0]
+    return bound(4 * NW + 4 * (NW // 16 + 1), NW, POPC_PER_S)
+
+
+def rank1_sector_bytes(words, i) -> dict:
+    """The bytes the L2 serves for one rank1 call, in whole 32-byte
+    sectors and counting no reuse between queries: each query's
+    directory sector and the sectors of the words it needs, plus its
+    offset and rank at 4 bytes each (a warp's are contiguous).
+    ``design``: this kernel, which reads a window's needed quarters as
+    16-byte vectors (its 64-byte-aligned window spans two sectors, one
+    past its eighth word; a window past the words reads one clamped
+    word); ``word_walk``: a load a needed word, a sector each, as one
+    thread walking the window word by word requests them."""
+    import torch
+    i64 = i.to(torch.int64)
+    kq = (i64 >> 5) & 15
+    # the last word with a non-zero mask (-1: none)
+    last = kq - ((i64 & 31) == 0).to(torch.int64)
+    sb = i64 >> 9
+    inside = (sb >= 0) & (sb < words.shape[0] // 16)
+    sectors = torch.where(inside, (last >= 0).to(torch.int64)
+                          + (last >= 8).to(torch.int64),
+                          (last >= 0).to(torch.int64))
+    per_query = SECTOR_BYTES + 8            # directory sector, offset, rank
+    return {"design": int(SECTOR_BYTES * sectors.sum())
+            + per_query * i.shape[0],
+            "word_walk": int(SECTOR_BYTES * (last + 1).sum())
+            + per_query * i.shape[0]}
+
+
 def rank1_bound(words, directory, i):
     """Each offset read and each rank written once, and once each word
     and directory entry that some query needs: the words of its
@@ -385,13 +435,15 @@ PARENT = None
 
 
 class ParentSuperstep:
-    """The parent tree's own ``ops.packed_superstep``, loaded from
-    ``DIR/src/repro_torch`` as the package ``parent_repro_torch`` (its
-    kernel built into that tree's ``kernels/_build/``), for timing in
-    turns with this tree's kernel on the same card and inputs.  It takes
-    the edge inputs its signature names: the epoch's ``(subj, pred,
-    obj)`` arrays, or a ``layout`` and ``scratch`` that its own
-    ``group_by_object`` and ``new_scratch`` build from them."""
+    """The parent tree's own ``ops``, loaded from ``DIR/src/repro_torch``
+    as the package ``parent_repro_torch`` (its kernels built into that
+    tree's ``kernels/_build/``), for timing in turns with this tree's
+    kernels on the same card and inputs: its ``packed_superstep``, which
+    takes the edge inputs its signature names (the epoch's ``(subj,
+    pred, obj)`` arrays, or a ``layout`` and ``scratch`` that its own
+    ``group_by_object`` and ``new_scratch`` build from them), and its
+    rank entry points ``rank1`` and ``build_rank_directory``
+    (:meth:`turns_of`)."""
 
     NAME = "parent_repro_torch"
 
@@ -420,7 +472,7 @@ class ParentSuperstep:
         from importlib import import_module
         t0 = time.perf_counter()
         import_module(self.NAME + ".kernels._build").build(
-            ["packed_superstep"])
+            ["packed_superstep", "rank_popcount"])
         self.seconds = time.perf_counter() - t0
 
     def bind(self, args, gathered):
@@ -441,6 +493,20 @@ class ParentSuperstep:
             self.ops.packed_superstep(*state, stamp, Bp, bwd, *tail,
                                       gathered=gathered)
         return run, reset
+
+    def turns_of(self, name: str, args, want, kernel) -> dict:
+        """The parent's ``ops.<name>`` on ``args``, held to ``want``, then
+        timed in turns with ``kernel``: parent, kernel, kernel, parent."""
+        import torch
+        fn = getattr(self.ops, name)
+
+        def run():
+            return fn(*args)
+
+        equal = bool(torch.equal(run(), want))
+        t = [time_ms(run), time_ms(kernel), time_ms(kernel), time_ms(run)]
+        return {"parent_ms": (t[0] + t[3]) / 2, "turns_ms": t,
+                "parent_equal": equal}
 
     def turns(self, args, gathered, want, kernel, fresh) -> dict:
         """The parent's pass on ``args``, held to ``want``, then timed in
@@ -693,11 +759,77 @@ def unfused_ms(args, want_next, where) -> float:
 
 
 def kernel_check(errs: dict, name: str, kernel, plain, args, bound_ms,
-                 **shape) -> None:
-    """:func:`check_and_time` at one shape; one JSON line."""
-    emit({"phase": "kernel_check", "kernel": name, **shape,
-          **check_and_time(errs, name, kernel, plain, args, shape),
-          "bound_ms": bound_ms[0], "bound_by": bound_ms[1]})
+                 **shape) -> dict:
+    """:func:`check_and_time` at one shape; one JSON line, returned."""
+    line = {"phase": "kernel_check", "kernel": name, **shape,
+            **check_and_time(errs, name, kernel, plain, args, shape),
+            "bound_ms": bound_ms[0], "bound_by": bound_ms[1]}
+    emit(line)
+    return line
+
+
+def directory_plain(words):
+    """The directory composed as the parent tree composed it on the
+    card, with the plain popcounts: popcounts, ``cumsum``, ``cat``."""
+    import torch
+    from repro_torch.kernels import ref
+    pc = ref.superblock_popcounts_ref(words)
+    return torch.cat([pc.new_zeros(1), torch.cumsum(pc, 0,
+                                                    dtype=torch.int32)])
+
+
+def directory_check(errs: dict, words, **shape):
+    """The popcount kernel's directory mode (one launch) against
+    :func:`directory_plain`, bit for bit, then both timed and, with
+    ``--parent``, the parent's own ``build_rank_directory`` (popcounts,
+    ``cumsum``, ``cat``) in turns.  One JSON line; returns (directory,
+    line)."""
+    from repro_torch.kernels import rank_popcount as krank
+
+    def kernel():
+        return krank.rank_directory_cuda(words)
+
+    got, want = kernel(), directory_plain(words)
+    err = max_abs_err(got, want)
+    errs.setdefault("superblock_popcounts", []).append(err)
+    if err:
+        fail(f"the rank directory differs from its plain version at {shape}")
+    b = directory_bound(words)
+    line = {"phase": "kernel_check", "kernel": "superblock_popcounts",
+            "mode": "directory", **shape, "max_abs_err": err,
+            "ms": time_ms(kernel), "plain_ms": time_ms(
+                lambda: directory_plain(words)),
+            "bound_ms": b[0], "bound_by": b[1]}
+    if PARENT is not None:
+        line.update(PARENT.turns_of("build_rank_directory", (words,), want,
+                                    kernel))
+    emit(line)
+    return got, line
+
+
+def rank1_check(errs: dict, words, directory, q, **shape) -> dict:
+    """``rank1`` against its plain version, bit for bit, and timed, with
+    its bound, the L2 sector bytes its design reads and the rate they
+    imply (``l2_sector_bytes``, ``l2_tb_s``; ``word_walk_sector_bytes``
+    for a load a word) and, with ``--parent``, the parent's ``rank1`` in
+    turns.  One JSON line, returned."""
+    from repro_torch.kernels import rank_popcount as krank
+    from repro_torch.kernels import ref
+    args = (words, directory, q)
+    b = rank1_bound(*args)
+    line = {"phase": "kernel_check", "kernel": "rank1", **shape,
+            **check_and_time(errs, "rank1", krank.rank1_cuda,
+                             ref.rank1_window_ref, args, shape),
+            "bound_ms": b[0], "bound_by": b[1]}
+    sectors = rank1_sector_bytes(words, q)
+    line.update(l2_sector_bytes=sectors["design"],
+                l2_tb_s=sectors["design"] / line["ms"] / 1e9,
+                word_walk_sector_bytes=sectors["word_walk"])
+    if PARENT is not None:
+        line.update(PARENT.turns_of("rank1", args, krank.rank1_cuda(*args),
+                                    lambda: krank.rank1_cuda(*args)))
+    emit(line)
+    return line
 
 
 def nfa_layouts(X, bwd) -> dict:
@@ -846,6 +978,18 @@ def phase_kernels(errs: dict, capture: dict):
                      scan_bound(vals), E=E, W=W)
         capture["segmented_or_scan"] = (vals, flags)
 
+    rank_kernels(errs, capture, rng)
+
+
+def rank_kernels(errs: dict, capture: dict, rng) -> None:
+    """Phase 1's rank points: at each of ``RANK_BITS`` the popcounts, the
+    one-launch directory and ``rank1`` at ``RANK_QUERIES`` random and
+    sorted offsets, then each kernel's launch floor."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rank_popcount as krank
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import words_to_tensor
     for n_bits in RANK_BITS:
         words = words_to_tensor(_bitvector(rng, n_bits), "cuda")
         kernel_check(errs, "superblock_popcounts",
@@ -853,20 +997,34 @@ def phase_kernels(errs: dict, capture: dict):
                      ref.superblock_popcounts_ref, (words,),
                      popcounts_bound(words), n_bits=n_bits,
                      NW=words.shape[0])
-        pc = krank.superblock_popcounts_cuda(words)
-        directory = torch.cat([pc.new_zeros(1),
-                               torch.cumsum(pc, 0, dtype=torch.int32)])
+        directory, _line = directory_check(errs, words, n_bits=n_bits,
+                                           NW=words.shape[0])
         for Q in RANK_QUERIES:
-            q = ids(np.concatenate([[0, n_bits], rng.integers(
-                0, n_bits + 1, Q - 2)]).astype(np.int32))
-            kernel_check(errs, "rank1", krank.rank1_cuda,
-                         ref.rank1_window_ref, (words, directory, q),
-                         rank1_bound(words, directory, q), n_bits=n_bits,
-                         Q=Q)
-            want = ref.rank1_ref(words, q)      # no directory, no window
-            if not torch.equal(krank.rank1_cuda(words, directory, q), want):
-                fail(f"rank1 differs from the prefix-sum rank at "
-                     f"n_bits={n_bits} Q={Q}")
+            q = torch.from_numpy(np.concatenate([[0, n_bits], rng.integers(
+                0, n_bits + 1, Q - 2)]).astype(np.int32)).to("cuda")
+            # random offsets, then the same sorted: the backward search
+            # asks for ranks at range ends that lie close together
+            for order, qo in (("random", q), ("sorted", torch.sort(q)[0])):
+                rank1_check(errs, words, directory, qo, n_bits=n_bits, Q=Q,
+                            order=order)
+                want = ref.rank1_ref(words, qo)   # no directory, no window
+                if not torch.equal(krank.rank1_cuda(words, directory, qo),
+                                   want):
+                    fail(f"rank1 differs from the prefix-sum rank at "
+                         f"n_bits={n_bits} Q={Q} ({order})")
+    # each kernel's launch floor, timed as the kernel itself
+    w = words[:RANK_FLOOR_NW]
+    floors = {
+        "superblock_popcounts": kernel_check(
+            errs, "superblock_popcounts", krank.superblock_popcounts_cuda,
+            ref.superblock_popcounts_ref, (w,), popcounts_bound(w),
+            floor=True, NW=RANK_FLOOR_NW)["ms"],
+        "directory": directory_check(errs, w, floor=True,
+                                     NW=RANK_FLOOR_NW)[1]["ms"],
+        "rank1": rank1_check(errs, words, directory, q[2:2 + RANK_FLOOR_Q],
+                             floor=True, NW=int(words.shape[0]),
+                             Q=RANK_FLOOR_Q)["ms"]}
+    capture["rank_floor_ms"] = floors
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -3389,9 +3547,14 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     ``packed_superstep`` point has its bound over the grouped inputs, the
     edge pass's bound and the bytes its design moves beside it
     (:func:`superstep_bounds`) and, with ``--parent``, the parent's time
-    in the same call (``parent_ms``).  ``library_ms`` is
+    in the same call (``parent_ms``).  ``superblock_popcounts``: the
+    one-launch directory (``directory``) and the launch floors of both
+    modes; ``rank1``: its L2 sector bytes, the same offsets sorted
+    (``sorted``) and its launch floor; with ``--parent``, the parent's
+    ``rank1`` and ``build_rank_directory`` in turns.  ``library_ms`` is
     null throughout: no single PyTorch call ORs or popcounts packed
     words."""
+    import torch
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
     from repro_torch.kernels import ref
@@ -3403,6 +3566,18 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     vals, seg_ids, V = capture["segment_or"]
     scan_vals, flags = capture["segmented_or_scan"]
     words, directory, q = capture["rank"]
+    level = {"where": "phase 6's largest level", "NW": int(words.shape[0])}
+    rank = {order: rank1_check(errs, words, directory, qo, order=order,
+                               Q=int(q.shape[0]), **level)
+            for order, qo in (("random", q), ("sorted", torch.sort(q)[0]))}
+    directory_line = directory_check(errs, words, **level)[1]
+    floors = capture["rank_floor_ms"]
+
+    def rank_part(line, keys=("ms", "plain_ms", "bound_ms", "bound_by",
+                              "l2_sector_bytes", "l2_tb_s",
+                              "word_walk_sector_bytes", "parent_ms",
+                              "turns_ms", "parent_equal")):
+        return {k: line[k] for k in keys if k in line}
 
     def checked(name, kernel, plain, args):
         return lambda: check_and_time(errs, name, kernel, plain, args,
@@ -3438,10 +3613,11 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                                          (words,)),
                                  popcounts_bound(words),
                                  {"NW": int(words.shape[0])}),
-        "rank1": (checked("rank1", krank.rank1_cuda, ref.rank1_window_ref,
-                          (words, directory, q)),
-                  rank1_bound(words, directory, q),
-                  {"NW": int(words.shape[0]), "Q": int(q.shape[0])}),
+        "rank1": (lambda: {k: rank["random"][k] for k in
+                           ("max_abs_err", "ms", "plain_ms")},
+                  (rank["random"]["bound_ms"], rank["random"]["bound_by"]),
+                  {"NW": int(words.shape[0]), "Q": int(q.shape[0]),
+                   "order": "random"}),
     }
     rows = capture["rows"]
     sX, sbwd = capture["shard_X"], capture["shard_bwd"]
@@ -3465,6 +3641,17 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                    "W": int(dense_args[0].shape[2]),
                    "transition_words": capture["dense_superstep_live"]}
     extra = {
+        "superblock_popcounts": {
+            "directory_ms": directory_line["ms"],
+            "directory": rank_part(directory_line, (
+                "plain_ms", "bound_ms", "bound_by", "parent_ms", "turns_ms",
+                "parent_equal")),
+            "floor_ms": floors["superblock_popcounts"],
+            "directory_floor_ms": floors["directory"]},
+        "rank1": {**{k: v for k, v in rank_part(rank["random"]).items()
+                     if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                  "sorted": rank_part(rank["sorted"]),
+                  "floor_ms": floors["rank1"]},
         "nfa_step": {
             "launches_by_path": nfa_paths,
             "shard": {"launches": nfa_paths["mesh"], "N": int(sX.shape[0]),
@@ -3519,9 +3706,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR", help=(
         "a checkout of the parent commit (e.g. unpacked with git archive "
-        "into .proof_tree/parent): its own ops.packed_superstep is loaded, "
-        "its kernel built, and timed in turns with this tree's at every "
-        "superstep timing point"))
+        "into .proof_tree/parent): its own ops.packed_superstep, ops.rank1 "
+        "and ops.build_rank_directory are loaded, their kernels built, and "
+        "each timed in turns with this tree's at every superstep and rank "
+        "timing point"))
     opts = ap.parse_args()
     try:
         import torch

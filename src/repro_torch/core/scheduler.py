@@ -102,8 +102,8 @@ class QueryTicket:
     """
 
     __slots__ = ("query", "submitted_at", "admitted_at", "deadline",
-                 "epoch", "state", "finished_at", "stats", "_result",
-                 "_error", "_stream", "_emitted")
+                 "epoch", "state", "finished_at", "stats", "settled",
+                 "_result", "_error", "_stream", "_emitted")
 
     def __init__(self, query: Query, submitted_at: float,
                  deadline: Optional[float]):
@@ -115,6 +115,10 @@ class QueryTicket:
         self.state = "queued"            # queued | running | done | failed
         self.finished_at: Optional[float] = None
         self.stats = QueryStats()
+        # where the ticket settled ("queued", "running", "superstep",
+        # "admit" or "harvest") and the record of the tick that settled
+        # it (``SlotScheduler.step``)
+        self.settled: Optional[Tuple[str, Dict[str, Any]]] = None
         self._result: Optional[Set[Tuple[int, int]]] = None
         self._error: Optional[BaseException] = None
         self._stream: List[Tuple[int, int]] = []
@@ -312,6 +316,8 @@ class SlotScheduler:
         self.updates = 0
         self.streamed_pairs = 0
         self.peak_in_flight = 0
+        self.last_tick: Optional[Dict[str, Any]] = None
+        self.longest_tick: Optional[Dict[str, Any]] = None
 
     # -- submission ----------------------------------------------------------
     def submit(self, query: QueryLike,
@@ -357,31 +363,57 @@ class SlotScheduler:
     def step(self) -> bool:
         """One scheduler tick: preempt expired deadlines, admit from the
         waiting queue into free slots, advance the wavefront by one
-        superstep, harvest newly-converged slots.  Returns True while
-        any query is in flight or waiting."""
+        superstep, harvest newly-converged slots.  A tick that preempts
+        a ticket at its top ends there: the pump hands the failure over
+        before the other slots' superstep, which may run until the next
+        of their own deadlines.  ``last_tick`` and ``longest_tick`` keep
+        the tick records (seconds of each part, tickets admitted,
+        delegated and settled); each settled ticket holds its own.
+        Returns True while any query is in flight or waiting."""
         if not (self.active or self.waiting):
             return False
         with otrace.span("scheduler.tick", cat="scheduler",
                          active=len(self.active), waiting=len(self.waiting)):
             now = self.clock()
+            tick = self.last_tick = {
+                "at": now, "s": 0.0, "expire_s": 0.0, "admit_s": 0.0,
+                "superstep_s": 0.0, "harvest_s": 0.0, "slots": 0,
+                "admitted": 0, "delegated": 0, "settled": 0,
+                "ended_after_expire": False}
+            preempted = self.preempted
             self._expire(now)
-            self._admit(now)
-            if self.active:
-                with otrace.span("scheduler.superstep", cat="scheduler",
-                                 slots=len(self.active)):
-                    t0 = self.clock()
-                    expired = self.slots.step()
-                    dt = self.clock() - t0
-                # wall time inside superstep dispatch, attributed to every
-                # ticket that occupied a slot during it
-                for a in self.active:
-                    a.ticket.stats.supersteps_s += dt
-                for a in [a for a in self.active
-                          if any(a.handle is h for h in expired)]:
-                    self._preempt(a, "superstep")
-                    self.preempted_in_superstep += 1
-                self._harvest()
-            self._hist_tick.observe(self.clock() - now)
+            t = self.clock()
+            tick["expire_s"] = t - now
+            if self.preempted > preempted:
+                tick["ended_after_expire"] = True
+            else:
+                admitted, delegated = self.admitted, self.delegated
+                self._admit(now)
+                t0 = self.clock()
+                tick.update(admit_s=t0 - t, slots=len(self.active),
+                            admitted=self.admitted - admitted,
+                            delegated=self.delegated - delegated)
+                if self.active:
+                    with otrace.span("scheduler.superstep", cat="scheduler",
+                                     slots=len(self.active)):
+                        expired = self.slots.step()
+                        t = self.clock()
+                    dt = tick["superstep_s"] = t - t0
+                    # wall time inside superstep dispatch, attributed to
+                    # every ticket that occupied a slot during it
+                    for a in self.active:
+                        a.ticket.stats.supersteps_s += dt
+                    for a in [a for a in self.active
+                              if any(a.handle is h for h in expired)]:
+                        self._preempt(a, "superstep")
+                        self.preempted_in_superstep += 1
+                    self._harvest()
+                    tick["harvest_s"] = self.clock() - t
+            tick["s"] = self.clock() - now
+            self._hist_tick.observe(tick["s"])
+            if self.longest_tick is None \
+                    or tick["s"] > self.longest_tick["s"]:
+                self.longest_tick = tick
         return bool(self.active or self.waiting)
 
     def drain(self) -> None:
@@ -465,10 +497,16 @@ class SlotScheduler:
             "cache_hit": cache_hit,
         })
 
-    def _fail(self, ticket: QueryTicket, err: BaseException) -> None:
+    def _settled(self, ticket: QueryTicket, where: str) -> None:
+        ticket.finished_at = self.clock()
+        ticket.settled = (where, self.last_tick)
+        self.last_tick["settled"] += 1
+
+    def _fail(self, ticket: QueryTicket, err: BaseException,
+              where: str) -> None:
         ticket._error = err
         ticket.state = "failed"
-        ticket.finished_at = self.clock()
+        self._settled(ticket, where)
         if ticket.admitted_at is not None:
             ticket.stats.service_s = ticket.finished_at - ticket.admitted_at
         self._record_ticket(
@@ -481,7 +519,8 @@ class SlotScheduler:
         self._hist_e2e.observe(ticket.finished_at - ticket.submitted_at)
 
     def _finish(self, ticket: QueryTicket, out: Set[Tuple[int, int]],
-                key: Tuple, footprint: frozenset) -> None:
+                key: Tuple, footprint: frozenset,
+                where: str = "harvest") -> None:
         with otrace.span("scheduler.retire", cat="scheduler",
                          expr=ticket.query.expr, results=len(out)):
             q = ticket.query
@@ -493,7 +532,7 @@ class SlotScheduler:
                                     epoch=ticket.epoch or 0)
             ticket._result = out
             ticket.state = "done"
-            ticket.finished_at = self.clock()
+            self._settled(ticket, where)
             self._settle_stats(ticket)
             self.completed += 1
             self._record_ticket(ticket, "ok")
@@ -506,7 +545,8 @@ class SlotScheduler:
                              where="queued", expr=ticket.query.expr):
                 ticket.stats.queue_wait_s = now - ticket.submitted_at
                 self._hist_preempt_wait.observe(ticket.stats.queue_wait_s)
-                self._fail(ticket, TimeoutError("query deadline exceeded"))
+                self._fail(ticket, TimeoutError("query deadline exceeded"),
+                           "queued")
             self.preempted += 1
         for a in [a for a in self.active
                   if a.ticket.deadline is not None
@@ -524,7 +564,8 @@ class SlotScheduler:
             self.slots.release(a.handle)
             self.active.remove(a)
             self._hist_preempt_wait.observe(a.ticket.stats.queue_wait_s)
-            self._fail(a.ticket, TimeoutError("query deadline exceeded"))
+            self._fail(a.ticket, TimeoutError("query deadline exceeded"),
+                       where)
         self.preempted += 1
 
     def _pop_next(self) -> QueryTicket:
@@ -556,7 +597,7 @@ class SlotScheduler:
                 try:
                     self._admit_one(ticket, now)
                 except TimeoutError as e:
-                    self._fail(ticket, e)
+                    self._fail(ticket, e, "admit")
                 sp.set(state=ticket.state)
             self.peak_in_flight = max(self.peak_in_flight, len(self.active))
 
@@ -580,7 +621,8 @@ class SlotScheduler:
                 eng, q, stats=ticket.stats, deadline_s=remaining)
             oexplain.deliver(q.explain, report)
             ticket.epoch = eng.epoch
-            self._finish(ticket, out, key, eng._footprint(rx.parse(q.expr)))
+            self._finish(ticket, out, key, eng._footprint(rx.parse(q.expr)),
+                         "admit")
             return
         cached = eng.results.get_covering(key)
         if cached is not None:
@@ -592,7 +634,7 @@ class SlotScheduler:
             ticket._result = set(cached)
             ticket.stats.results = len(cached)
             ticket.state = "done"
-            ticket.finished_at = self.clock()
+            self._settled(ticket, "admit")
             self._settle_stats(ticket)
             self.completed += 1
             self._record_ticket(ticket, "ok", cache_hit=True)
@@ -616,11 +658,12 @@ class SlotScheduler:
                     raise TimeoutError("query deadline exceeded")
             out = eng.eval(q.expr, q.subject, q.obj, q.limit,
                            deadline_s=remaining)
-            self._finish(ticket, out, key, footprint)
+            self._finish(ticket, out, key, footprint, "admit")
             return
         if q.subject is not None and q.obj is not None:
             if null and q.subject == q.obj:
-                self._finish(ticket, {(q.subject, q.obj)}, key, footprint)
+                self._finish(ticket, {(q.subject, q.obj)}, key, footprint,
+                             "admit")
                 return
             if qplan.mode == "reverse":
                 plan, start, tgt = (self.slots.plan(rx.reverse(ast)),

@@ -47,6 +47,8 @@ SOURCES = {
     }),
     "rank_popcount": ("rank_popcount.cu", {
         "superblock_popcounts_launch": ([_P, _P, _L, _P], _I),
+        "rank_directory_scratch_words": ([_L], _L),
+        "rank_directory_launch": ([_P, _P, _P, _L, ctypes.c_uint, _P], _I),
         "rank1_launch": ([_P, _P, _P, _P, _L, _L, _L, _P], _I),
     }),
 }

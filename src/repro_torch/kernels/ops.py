@@ -132,10 +132,12 @@ def superblock_popcounts(words: torch.Tensor) -> torch.Tensor:
 
 def build_rank_directory(words: torch.Tensor) -> torch.Tensor:
     """Rank directory of [NW] int32 words: a leading 0, then the prefix
-    sum of the superblock popcounts, [NW / 16 + 1] int32."""
-    pc = superblock_popcounts(words)
-    return torch.cat([pc.new_zeros(1),
-                      torch.cumsum(pc, dim=0, dtype=torch.int32)])
+    sum of the superblock popcounts, [NW / 16 + 1] int32.  On the card
+    one launch of the popcount kernel's directory mode (the first call
+    on a stream, or at a larger size, also clears its new scratch); on
+    the host the plain popcounts, ``cumsum`` and ``cat``."""
+    return _route("superblock_popcounts", _rank.rank_directory_cuda,
+                  _rank.rank_directory_plain, words)(words)
 
 
 def rank1(words: torch.Tensor, directory: torch.Tensor,

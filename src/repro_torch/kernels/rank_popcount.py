@@ -4,14 +4,17 @@ plain versions and their launch counters.
 Two kernels (``csrc/rank_popcount.cu``), as in the JAX package:
 
   * ``superblock_popcounts``: set bits per 512-bit superblock
-    (``SB_WORDS`` words); the rank directory is their prefix sum with a
-    leading 0 (``ops.build_rank_directory``).
+    (``SB_WORDS`` words).  Its directory mode (:func:`rank_directory_cuda`)
+    writes the rank directory itself, a leading 0 and the prefix sum of
+    the counts, in the same launch (a single-pass chained scan); it
+    counts as a ``superblock_popcounts`` launch.
   * ``rank1``: ``rank1(i) = dir[i >> 9] + popcount(window(i) & mask(i))``.
     The JAX package gathers each query's window and builds its masks in
     XLA and reduces them in its ``rank_window`` kernel; here one kernel
-    does all of it, one thread per query, with the masks built in uint32
-    inside the kernel (torch's ``>>`` on int32 is arithmetic, so
-    ``0xFFFFFFFF >> k`` cannot be built with torch ops on the card).
+    does all of it, a thread a query reading the window's needed 16-byte
+    quarters, with the masks built in uint32 inside the kernel
+    (torch's ``>>`` on int32 is arithmetic, so ``0xFFFFFFFF >> k``
+    cannot be built with torch ops on the card).
 
 Words are uint32 bit patterns in int32 tensors (see :mod:`.ref`).
 """
@@ -21,6 +24,11 @@ import torch
 
 from . import _build
 from .ref import SB_WORDS, rank1_window_ref, superblock_popcounts_ref
+
+# the directory mode's scratch: (device index, stream) -> [int64 words,
+# the last launch's sequence number]; see rank_directory_launch
+_SCRATCH = {}
+SEQ_LIMIT = 1 << 31
 
 # launches of each CUDA kernel since the last reset (see
 # ``repro_torch.kernels.reset_launch_counts``)
@@ -70,6 +78,56 @@ def superblock_popcounts_cuda(words: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _scratch(lib, device: torch.device, stream: int, NW: int):
+    """The directory scratch of this device and stream, large enough for
+    NW words, and the next launch's sequence number.  A new scratch is
+    zero; the flags' sequence numbers spare every later launch a
+    clear, until they wrap, when the scratch is cleared once."""
+    need = lib.rank_directory_scratch_words(NW)
+    key = (device.index, stream)
+    entry = _SCRATCH.get(key)
+    if entry is None or entry[0].numel() < need:
+        entry = _SCRATCH[key] = [torch.zeros(need, dtype=torch.int64,
+                                             device=device), 0]
+    entry[1] += 1
+    if entry[1] >= SEQ_LIMIT:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
+
+
+def rank_directory_cuda(words: torch.Tensor) -> torch.Tensor:
+    """Launch on the current stream: the rank directory of [NW]
+    contiguous int32 words on a CUDA device (NW % 16 == 0), a leading 0
+    and the prefix sum of the superblock popcounts, [NW / 16 + 1] int32,
+    in one launch of the popcount kernel's directory mode."""
+    _check_words("superblock_popcounts", words)
+    _build.check_cuda("rank_directory_cuda", words)
+    NW = words.shape[0]
+    out = torch.empty(NW // SB_WORDS + 1, dtype=torch.int32,
+                      device=words.device)
+    if NW == 0:
+        return out.zero_()
+    lib = _build.library("rank_popcount")
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        scratch, seq = _scratch(lib, words.device, stream, NW)
+        rc = lib.rank_directory_launch(words.data_ptr(), out.data_ptr(),
+                                       scratch.data_ptr(), NW, seq, stream)
+    if rc != 0:
+        _SCRATCH.pop((words.device.index, stream), None)
+    _build.check_launch(rc, "superblock_popcounts (directory)")
+    launches["superblock_popcounts"] += 1
+    return out
+
+
+def rank_directory_plain(words: torch.Tensor) -> torch.Tensor:
+    """The directory mode's plain PyTorch version, for CPU tensors."""
+    pc = superblock_popcounts_plain(words)
+    return torch.cat([pc.new_zeros(1),
+                      torch.cumsum(pc, dim=0, dtype=torch.int32)])
+
+
 def superblock_popcounts_plain(words: torch.Tensor) -> torch.Tensor:
     """The kernel's plain PyTorch version, for CPU tensors."""
     _check_words("superblock_popcounts", words)
@@ -81,7 +139,8 @@ def rank1_cuda(words: torch.Tensor, directory: torch.Tensor,
                i: torch.Tensor) -> torch.Tensor:
     """Launch on the current stream.  words: [NW] int32 words, directory:
     [ndir] int32, i: [Q] int32 bit offsets, all contiguous on one CUDA
-    device -> [Q] int32 ranks."""
+    device -> [Q] int32 ranks.  Words whose address is not 16-byte
+    aligned (a view at an offset) take the kernel's per-word path."""
     _check_rank(words, directory, i)
     _build.check_cuda("rank1_cuda", words, directory, i)
     Q = i.shape[0]
@@ -105,3 +164,4 @@ def rank1_plain(words: torch.Tensor, directory: torch.Tensor,
     _check_rank(words, directory, i)
     _build.check_cpu("rank1_plain", words)
     return rank1_window_ref(words, directory, i)
+

@@ -55,7 +55,8 @@ OVERRUN_BOUND_S = 0.25
 class Outcome:
     """One request as the client saw it: ``answer`` (None on timeout),
     the ticket's epoch, client latency, and for a timeout how far past
-    its deadline it settled."""
+    its deadline its client resumed (``overrun_s``) and where the
+    scheduler settled it (``settled``: see :func:`_settled`)."""
 
     index: int
     ok: bool
@@ -63,6 +64,20 @@ class Outcome:
     epoch: Optional[int]
     latency_s: float
     overrun_s: Optional[float]
+    settled: Optional[Dict[str, Any]] = None
+
+
+def _settled(ticket) -> Dict[str, Any]:
+    """Where a timed-out ticket settled ("queued", "running" at the top
+    of a tick, "superstep", "admit"), how far past its deadline the
+    scheduler settled it and its tick began (``settled_s``,
+    ``tick_began_s``), and that tick's record (seconds of each part,
+    tickets admitted, delegated and settled)."""
+    where, tick = ticket.settled
+    return {"where": where,
+            "settled_s": ticket.finished_at - ticket.deadline,
+            "tick_began_s": tick["at"] - ticket.deadline,
+            "tick": {k: v for k, v in tick.items() if k != "at"}}
 
 
 def live_adds(V: int, P: int, seed: int = 5, n: int = 16):
@@ -123,7 +138,8 @@ async def _stream(sched, queries, concurrency: int, deadline_s, adds,
                 ticket = at.ticket
                 outcomes[i] = Outcome(
                     i, ok, answer, ticket.epoch, t1 - t0,
-                    None if ok else t1 - ticket.deadline)
+                    *((None, None) if ok else (t1 - ticket.deadline,
+                                               _settled(ticket))))
 
         t0 = time.perf_counter()
         await asyncio.gather(*(client() for _ in range(concurrency)))
@@ -267,9 +283,12 @@ def latency_summary(out: Dict[str, Any],
     """Counts and latencies of one :func:`run`: ok and timed-out
     requests, preemptions (inside a superstep too), p50/p99/max latency
     of ``ok`` requests overall and per class (``classes``: name ->
-    request indices), and the largest overrun past a deadline."""
+    request indices), the largest overrun past a deadline and the tick
+    that held it (``worst_overrun``), and the longest tick's record."""
     outcomes, sched = out["outcomes"], out["scheduler"]
     overruns = [o.overrun_s for o in outcomes if not o.ok]
+    worst = max((o for o in outcomes if not o.ok),
+                key=lambda o: o.overrun_s, default=None)
     lat = {"all": _quantiles([o.latency_s for o in outcomes if o.ok])}
     for name, idx in (classes or {}).items():
         lat[name] = _quantiles([outcomes[i].latency_s for i in idx
@@ -288,7 +307,12 @@ def latency_summary(out: Dict[str, Any],
             "ok_by_epoch": {str(k): v for k, v in sorted(epochs.items())},
             "latency_s": lat,
             "max_overrun_s": max(overruns) if overruns else None,
+            "worst_overrun": None if worst is None else {
+                "index": worst.index, "overrun_s": worst.overrun_s,
+                **worst.settled},
             "max_tick_s": sched.metrics_snapshot()["rpq_tick_seconds"]["max"],
+            "longest_tick": None if sched.longest_tick is None else {
+                k: v for k, v in sched.longest_tick.items() if k != "at"},
             "update_s": out["update_s"], "gc": out["gc"],
             "serve_s": out["serve_s"],
             "http": {t: s for t, (s, _b) in out["scraped"].items()},

@@ -252,6 +252,105 @@ def test_rank_kernels_cuda_match_plain(cuda_device, n_bits):
         [[0], np.cumsum(bits[:n_bits])])[q])
 
 
+def _edge_offsets(n_bits, NW):
+    """0, n, 32 and 512 and their neighbours, every offset of the second
+    superblock, and the padded range's end, whose window lies past the
+    words (32 * NW)."""
+    q = [0, 1, 31, 32, 33, 511, 512, 513, n_bits - 1, n_bits, n_bits + 1,
+         32 * NW - 1, 32 * NW]
+    q += range(512, 1024)
+    return np.asarray([x for x in q if 0 <= x <= 32 * NW], dtype=np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [100, 8192, 40000])
+@pytest.mark.parametrize("order", ["random", "sorted"])
+def test_rank1_cuda_offsets_over_padded_range(cuda_device, n_bits, order):
+    """Every offset of the padded range (0 to 32 * NW, the last window
+    past the words: the kernel's clamped path), the edge offsets, in
+    random and sorted order; Q is no multiple of the 256 queries a block
+    takes."""
+    rng = np.random.default_rng(n_bits + 7)
+    words = _bitvector_words(rng, n_bits)
+    NW = words.shape[0]
+    directory = ops.build_rank_directory(ops.words_to_tensor(words, "cpu"))
+    q = np.concatenate([np.arange(32 * NW + 1), _edge_offsets(n_bits, NW),
+                        rng.integers(0, 32 * NW + 1, 1_000)]).astype(np.int32)
+    q = np.sort(q) if order == "sorted" else rng.permutation(q)
+    assert q.shape[0] % 256
+    got, want = _card_and_plain("rank1", ops.rank1, cuda_device, words,
+                                directory.numpy(), q)
+    np.testing.assert_array_equal(got, want)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    inside = q <= n_bits
+    np.testing.assert_array_equal(got[inside], np.concatenate(
+        [[0], np.cumsum(bits[:n_bits])])[q[inside]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 255, 257, 4_097])
+def test_rank_kernels_cuda_unaligned_words(cuda_device, Q):
+    """Words at a 4-byte offset (a view one word into a larger tensor):
+    no 16-byte vector reads, the per-word path, still exact; so are the
+    popcounts and the one-launch directory of that view."""
+    rng = np.random.default_rng(Q)
+    n_bits = 20_000
+    words = _bitvector_words(rng, n_bits)
+    NW = words.shape[0]
+    big = ops.words_to_tensor(np.concatenate([[7], words, [9] * 15]).astype(
+        np.uint32), cuda_device)
+    view = big[1:NW + 1]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    cpu = ops.words_to_tensor(words, "cpu")
+    directory = ops.build_rank_directory(cpu)
+    q = np.concatenate([rng.integers(0, 32 * NW + 1, Q - 1), [32 * NW]])
+    q = torch.from_numpy(q.astype(np.int32))
+    tk.reset_launch_counts()
+    got = ops.rank1(view, directory.to(cuda_device), q.to(cuda_device))
+    pc = ops.superblock_popcounts(view)
+    dirs = ops.build_rank_directory(view)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["rank1"] == 1
+    assert tk.launch_counts()["superblock_popcounts"] == 2
+    assert torch.equal(got.cpu(), ops.rank1(cpu, directory, q))
+    assert torch.equal(pc.cpu(), ops.superblock_popcounts(cpu))
+    assert torch.equal(dirs.cpu(), directory)
+
+
+@pytest.mark.cuda
+def test_rank_directory_one_launch_across_scan_blocks(cuda_device,
+                                                       monkeypatch):
+    """The directory mode at sizes that span many scan tiles (64
+    superblocks each; more than the 32 tiles one look-back window
+    reads), all-ones words (the largest prefix sums), launched again and
+    again on one scratch (the sequence-stamped flags), a smaller and a
+    larger size between: one launch each, counted as
+    ``superblock_popcounts``, no ``cumsum`` or ``cat``, equal to the
+    plain composition."""
+    def refuse(*_a, **_k):
+        raise AssertionError("build_rank_directory used a torch op")
+
+    sizes = [16 * (256 * 70 + 13), 16 * (256 * 70 + 13), 16,
+             16 * (256 * 33), 4096 * 300, 16 * (256 * 70 + 13)]
+    for n, NW in enumerate(sizes):
+        words = np.full(NW, 0xFFFFFFFF, dtype=np.uint32)
+        if n % 2:
+            words = np.random.default_rng(NW).integers(
+                0, 2**32, NW, dtype=np.uint32)
+        card = ops.words_to_tensor(words, cuda_device)
+        want = krank.rank_directory_plain(ops.words_to_tensor(words, "cpu"))
+        with monkeypatch.context() as m:
+            m.setattr(torch, "cumsum", refuse)
+            m.setattr(torch, "cat", refuse)
+            tk.reset_launch_counts()
+            got = ops.build_rank_directory(card)
+            torch.cuda.synchronize()
+        assert tk.launch_counts() == dict(
+            {k: 0 for k in tk.KERNELS}, superblock_popcounts=1)
+        assert torch.equal(got.cpu(), want), (n, NW)
+    assert int(want[-1]) == int(np.unpackbits(words.view(np.uint8)).sum())
+
+
 @pytest.mark.cuda
 def test_new_kernels_reject_bad_inputs(cuda_device):
     vals = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)

@@ -19,7 +19,7 @@ from repro.core.engines import Query as RQuery  # noqa: E402
 from repro.core.oracle import eval_oracle  # noqa: E402
 from repro.core.ring import LabeledGraph as RGraph, Ring as RRing  # noqa: E402
 from repro.core.rpq import QueryStats as RStats, RingRPQ as RRPQ  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, serve  # noqa: E402
 from repro_torch.core import rpq as prpq  # noqa: E402
 from repro_torch.core.engines import Query  # noqa: E402
 from repro_torch.core.ring import Ring as PRing  # noqa: E402
@@ -172,6 +172,59 @@ def test_scheduler_preempts_slot_mid_superstep(hub, monkeypatch):
     for q, t, w, r in zip(others, tickets, want, ref):
         assert t.result() == w == r == eval_oracle(g, q.expr, q.subject,
                                                    q.obj), q
+
+
+def test_tick_that_preempts_at_its_top_ends_there(hub, monkeypatch):
+    """A slot whose deadline passes outside a superstep (here in a slow
+    harvest) is preempted at the top of the next tick, and that tick
+    ends there: the pump hands the failure over before the other slots'
+    next superstep (a hub's, thousands of pops) runs.  So the caller
+    hears within ``serve.OVERRUN_BOUND_S`` of the deadline, and the slot
+    admitted meanwhile answers exactly."""
+    g, rring, pring = hub
+    pops, pop_clock = _pop_clock(monkeypatch, start=0.0)
+    slow = [0.0]
+
+    def clock():
+        return pop_clock() + slow[0]
+
+    timed_q, hub_q = Query("(1|2)*/0", obj=0), Query("(0|2)/1*", obj=0)
+    dry = SlotScheduler(PRPQ(pring, device="cpu"), max_slots=4, clock=clock)
+    dry.submit(timed_q)
+    dry.step()
+    end_of_superstep = clock()            # the pop clock is deterministic
+    pops[0] = 0
+
+    sched = SlotScheduler(PRPQ(pring, device="cpu"), max_slots=4,
+                          clock=clock)
+    harvest = sched._harvest
+
+    def slow_harvest():                   # a hub's answer set, say
+        harvest()
+        if not slow[0]:
+            slow[0] = 0.1
+
+    monkeypatch.setattr(sched, "_harvest", slow_harvest)
+    timed = sched.submit(timed_q, deadline_s=end_of_superstep + 0.05)
+    sched.step()                          # the deadline passes in harvest
+    assert timed.state == "running" and clock() > timed.deadline
+    other = sched.submit(hub_q)
+    sched.step()
+    heard = clock()                       # when the pump could flush
+    assert timed.state == "failed"
+    assert heard - timed.deadline <= serve.OVERRUN_BOUND_S
+    assert timed.settled[0] == "running"
+    assert timed.settled[1]["ended_after_expire"]
+    assert other.state == "queued"        # admitted by the next tick
+    t = clock()
+    sched.step()                          # what tick 2 held it behind
+    assert other.state == "running" and clock() - t > 0.5
+    sched.drain()
+    with pytest.raises(TimeoutError):
+        timed.result()
+    monkeypatch.undo()
+    assert other.result() == PRPQ(pring, device="cpu").eval_many(
+        [hub_q])[0] == eval_oracle(g, hub_q.expr, hub_q.subject, hub_q.obj)
 
 
 @pytest.mark.parametrize("slice_", [2, prpq.TRANSITION_SLICE])

@@ -310,6 +310,30 @@ def test_rank1_matches_reference(n_bits):
         tref.rank1_ref(tw, torch.from_numpy(q)).numpy(), got)
 
 
+@pytest.mark.parametrize("n_bits", [100, 8192])
+def test_rank1_padded_range_matches_reference(n_bits):
+    """Every offset of the padded range, 0 to 32 * NW, whose last
+    windows reach past the words and whose last directory entry is the
+    total: the clamped semantics (each word index and the directory
+    index clamped into their arrays, the masks from the unclamped
+    positions) that the card's vector path must keep, held to the JAX
+    package's ``ops.rank1``."""
+    rng = np.random.default_rng(n_bits + 2)
+    words, _bits = _bitvector_words(rng, n_bits, 0.5)
+    words[-16:] = rng.integers(0, 2**32, 16, dtype=np.uint32)  # set padding
+    NW = words.shape[0]
+    q = rng.permutation(np.arange(32 * NW + 1)).astype(np.int32)
+    tw = tops.words_to_tensor(words, "cpu")
+    tdir = tops.build_rank_directory(tw)
+    got = tops.rank1(tw, tdir, torch.from_numpy(q)).numpy()
+    jdir = jops.build_rank_directory(jnp.asarray(words))
+    np.testing.assert_array_equal(tdir.numpy(), np.asarray(jdir))
+    np.testing.assert_array_equal(got, np.asarray(
+        jops.rank1(jnp.asarray(words), jdir, q)))
+    np.testing.assert_array_equal(
+        got, tref.rank1_window_ref(tw, tdir, torch.from_numpy(q)).numpy())
+
+
 def test_new_wrappers_check_inputs_and_never_fall_back():
     vals = torch.zeros((4, 2), dtype=torch.int32)
     ids = torch.zeros(4, dtype=torch.int32)
@@ -334,6 +358,8 @@ def test_new_wrappers_check_inputs_and_never_fall_back():
         trank.superblock_popcounts_cuda(words)
     with pytest.raises(ValueError):
         trank.rank1_cuda(words, directory, q)
+    with pytest.raises(ValueError):
+        trank.rank_directory_cuda(words)
     with pytest.raises(ValueError):       # not whole superblocks
         tops.superblock_popcounts(words[:20])
     with pytest.raises(TypeError):

@@ -53,6 +53,24 @@ def test_timeouts_settle_and_report_overrun():
     assert 0.0 <= report["max_overrun_s"] < 5.0
 
 
+def test_worst_overrun_names_its_tick():
+    """The summary names where the worst overrun's ticket settled and the
+    tick that held it: settled no earlier than that tick began and no
+    later than its client resumed; a tick that preempted a queued ticket
+    ended there.  The longest tick's record is the histogram's max."""
+    g = convert.graph_from_reference(scale_free_graph(300, 4, 1500, seed=3))
+    queries = serve.one_endpoint_requests(g, 12)
+    out = serve.run(make_engine(g, "ring", device="cpu"), queries, slots=4,
+                    concurrency=4, deadline_s=1e-9)
+    report = serve.latency_summary(out)
+    worst = report["worst_overrun"]
+    assert worst["overrun_s"] == report["max_overrun_s"]
+    assert worst["tick_began_s"] <= worst["settled_s"] <= worst["overrun_s"]
+    assert worst["where"] == "queued" and worst["tick"]["ended_after_expire"]
+    assert worst["tick"]["superstep_s"] == 0.0 and worst["tick"]["settled"]
+    assert report["longest_tick"]["s"] == report["max_tick_s"]
+
+
 def test_entry_point_reports_and_refuses_a_missing_card(tmp_path):
     record = tmp_path / "flight.jsonl"
     report = serve.main(["--device", "cpu", "--kind", "dense",
