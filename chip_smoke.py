@@ -6,9 +6,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 or with ``--parent DIR``, a checkout of the parent commit, to load that
-tree's own ``ops.packed_superstep``, ``ops.rank1`` and
-``ops.build_rank_directory`` too and time each in turns with this
-tree's at every superstep and rank timing point (``parent_ms``,
+tree's own ``ops.packed_superstep``, ``ops.rank1``,
+``ops.build_rank_directory``, ``ops.segment_or`` and
+``ops.segmented_or_scan`` too and time each in turns with this tree's at
+every superstep, rank and segment timing point (``parent_ms``,
 ``turns_ms``).
 
 Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
@@ -30,7 +31,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      ``cumsum`` and ``cat``),
      ``rank1`` at random and at the same offsets sorted, with the L2
      sector bytes its design reads, and each kernel's launch floor (one
-     query, one superblock);
+     query, one superblock); ``segment_or`` and ``segmented_or_scan``
+     at one row, their launch floors;
   2. the main path at full size: ``make_engine`` over
      ``scale_free_graph(200_000, 64, 2_000_000, seed=7)`` answers a batch
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
@@ -150,7 +152,11 @@ times at its path's largest launch, the heaviest superstep for
 ``packed_superstep`` also a shard's launch on the mesh, for
 ``packed_superstep`` the dense path's heaviest R = 16 launch, for
 ``nfa_step`` the serving ring's largest launch, for the rank kernels
-the directory, the sorted offsets and the launch floors)
+the directory, the sorted offsets and the launch floors, for
+``segment_or`` and ``segmented_or_scan`` the launch floors and the
+``cudaLaunchKernel`` calls of one call, and for ``segment_or`` the
+heaviest superstep's values with their ids permuted and that input's
+longest runs of equal ids)
 and, last, the ``ok`` line, right after it.  Any mismatch or exception
 exits non-zero before the ``ok`` line.  Without a CUDA device,
 or without the ``repro_torch`` package beside it, the script exits
@@ -311,6 +317,34 @@ def segment_or_bound(vals, num_segments: int):
                  int(nonzero.sum()), INT32_OPS_PER_S)
 
 
+def longest_run(ids) -> int:
+    """The most consecutive rows that share one id (0 for no rows)."""
+    import torch
+    n = ids.shape[0]
+    if n == 0:
+        return 0
+    change = torch.nonzero(ids[1:] != ids[:-1]).flatten()
+    ends = torch.cat([change.new_tensor([-1]), change,
+                      change.new_tensor([n - 1])])
+    return int((ends[1:] - ends[:-1]).max())
+
+
+def cuda_launches_per_call(fn, runs: int = 10) -> float:
+    """``cudaLaunchKernel`` calls one call of ``fn`` makes, as
+    ``torch.profiler`` counts them (a kernel's own launch, a fill)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "cudaLaunchKernel") / runs
+
+
 def edge_pass_bound(f, v, Bp, bwd, subj, pred, obj, gathered=None):
     """What one edge pass (the kernel before the grouped layout: a thread
     an edge) of R rows ([R, V, W] state, [R, L, W] and [R, S, W] tables)
@@ -441,9 +475,9 @@ class ParentSuperstep:
     kernels on the same card and inputs: its ``packed_superstep``, which
     takes the edge inputs its signature names (the epoch's ``(subj,
     pred, obj)`` arrays, or a ``layout`` and ``scratch`` that its own
-    ``group_by_object`` and ``new_scratch`` build from them), and its
-    rank entry points ``rank1`` and ``build_rank_directory``
-    (:meth:`turns_of`)."""
+    ``group_by_object`` and ``new_scratch`` build from them), its rank
+    entry points ``rank1`` and ``build_rank_directory`` and its
+    ``segment_or`` and ``segmented_or_scan`` (:meth:`turns_of`)."""
 
     NAME = "parent_repro_torch"
 
@@ -472,7 +506,7 @@ class ParentSuperstep:
         from importlib import import_module
         t0 = time.perf_counter()
         import_module(self.NAME + ".kernels._build").build(
-            ["packed_superstep", "rank_popcount"])
+            ["packed_superstep", "rank_popcount", "segment_or"])
         self.seconds = time.perf_counter() - t0
 
     def bind(self, args, gathered):
@@ -977,6 +1011,18 @@ def phase_kernels(errs: dict, capture: dict):
                      ref.segmented_or_scan_ref, (vals, flags),
                      scan_bound(vals), E=E, W=W)
         capture["segmented_or_scan"] = (vals, flags)
+    # both kernels' launch floors: one row, timed as the kernels themselves
+    one = words_to_tensor(np.ones((1, 1), dtype=np.uint32), "cuda")
+    zero = ids(np.zeros(1, dtype=np.int32))
+    capture["segment_floor_ms"] = {
+        "segment_or": kernel_check(
+            errs, "segment_or", kseg.segment_or_cuda, ref.segment_or_ref,
+            (one, zero, 1), segment_or_bound(one, 1), floor=True, E=1, W=1,
+            V=1)["ms"],
+        "segmented_or_scan": kernel_check(
+            errs, "segmented_or_scan", kseg.segmented_or_scan_cuda,
+            ref.segmented_or_scan_ref, (one, zero), scan_bound(one),
+            floor=True, E=1, W=1)["ms"]}
 
     rank_kernels(errs, capture, rng)
 
@@ -3528,6 +3574,48 @@ KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
 }
 
 
+def segment_extras(errs: dict, capture: dict, seg_args, scan_args):
+    """The kernels line's extra fields of ``segment_or`` (on
+    ``seg_args``, the heaviest superstep's values) and
+    ``segmented_or_scan`` (on ``scan_args``): see :func:`kernels_line`."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_or as kseg
+    vals, seg_ids, V = seg_args
+    seg_floors = capture["segment_floor_ms"]
+    perm = torch.from_numpy(np.random.default_rng(22).permutation(
+        vals.shape[0])).to(vals.device)
+    perm_args = (vals[perm].contiguous(), seg_ids[perm].contiguous(), V)
+    permuted = check_and_time(errs, "segment_or", kseg.segment_or_cuda,
+                              ref.segment_or_ref, perm_args,
+                              "the heaviest superstep's values, permuted")
+    segment_extra = {
+        "floor_ms": seg_floors["segment_or"],
+        "longest_run_of_ids": longest_run(seg_ids),
+        "longest_run_of_nonzero_rows": longest_run(
+            seg_ids[(vals != 0).any(1)]),
+        "cuda_launches_per_call": cuda_launches_per_call(
+            lambda: kseg.segment_or_cuda(*seg_args)),
+        "permuted": permuted}
+    scan_extra = {
+        "floor_ms": seg_floors["segmented_or_scan"],
+        "cuda_launches_per_call": cuda_launches_per_call(
+            lambda: kseg.segmented_or_scan_cuda(*scan_args))}
+    if PARENT is not None:
+        segment_extra.update(PARENT.turns_of(
+            "segment_or", seg_args, ref.segment_or_ref(*seg_args),
+            lambda: kseg.segment_or_cuda(*seg_args)))
+        permuted.update(PARENT.turns_of(
+            "segment_or", perm_args, ref.segment_or_ref(*perm_args),
+            lambda: kseg.segment_or_cuda(*perm_args)))
+        scan_extra.update(PARENT.turns_of(
+            "segmented_or_scan", scan_args,
+            ref.segmented_or_scan_ref(*scan_args),
+            lambda: kseg.segmented_or_scan_cuda(*scan_args)))
+    return segment_extra, scan_extra
+
+
 def kernels_line(capture: dict, launches: dict, errs: dict,
                  superstep_paths: dict, nfa_paths: dict):
     """One entry per kernel, timed at the largest launch of its path:
@@ -3551,9 +3639,16 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     one-launch directory (``directory``) and the launch floors of both
     modes; ``rank1``: its L2 sector bytes, the same offsets sorted
     (``sorted``) and its launch floor; with ``--parent``, the parent's
-    ``rank1`` and ``build_rank_directory`` in turns.  ``library_ms`` is
-    null throughout: no single PyTorch call ORs or popcounts packed
-    words."""
+    ``rank1`` and ``build_rank_directory`` in turns.  ``segment_or`` and
+    ``segmented_or_scan``: their launch floors (``floor_ms``, phase 1),
+    the ``cudaLaunchKernel`` calls of one call (``cuda_launches_per_call``:
+    the scan's own launch; the scatter's and the zero fill's) and, with
+    ``--parent``, the parent's kernels in turns; ``segment_or`` also the
+    longest runs of equal ids in its input (over all rows, and over the
+    rows with a non-zero word) and the same input with its rows
+    permuted (``permuted``: ids in no order), bit for bit.
+    ``library_ms`` is null throughout: no single PyTorch call ORs or
+    popcounts packed words."""
     import torch
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
@@ -3572,6 +3667,9 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
             for order, qo in (("random", q), ("sorted", torch.sort(q)[0]))}
     directory_line = directory_check(errs, words, **level)[1]
     floors = capture["rank_floor_ms"]
+    seg_args, scan_args = (vals, seg_ids, V), (scan_vals, flags)
+    segment_extra, scan_extra = segment_extras(errs, capture, seg_args,
+                                               scan_args)
 
     def rank_part(line, keys=("ms", "plain_ms", "bound_ms", "bound_by",
                               "l2_sector_bytes", "l2_tb_s",
@@ -3596,14 +3694,13 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
              "V": int(sup_args[0].shape[1]), "S": int(sup_args[7].shape[1]),
              "W": int(sup_args[0].shape[2])}),
         "segment_or": (checked("segment_or", kseg.segment_or_cuda,
-                               ref.segment_or_ref, (vals, seg_ids, V)),
+                               ref.segment_or_ref, seg_args),
                        segment_or_bound(vals, V),
                        {"E": int(vals.shape[0]), "W": int(vals.shape[1]),
                         "V": V, "nonzero_words": int((vals != 0).sum())}),
         "segmented_or_scan": (checked("segmented_or_scan",
                                       kseg.segmented_or_scan_cuda,
-                                      ref.segmented_or_scan_ref,
-                                      (scan_vals, flags)),
+                                      ref.segmented_or_scan_ref, scan_args),
                               scan_bound(scan_vals),
                               {"E": int(scan_vals.shape[0]),
                                "W": int(scan_vals.shape[1])}),
@@ -3641,6 +3738,8 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                    "W": int(dense_args[0].shape[2]),
                    "transition_words": capture["dense_superstep_live"]}
     extra = {
+        "segment_or": segment_extra,
+        "segmented_or_scan": scan_extra,
         "superblock_popcounts": {
             "directory_ms": directory_line["ms"],
             "directory": rank_part(directory_line, (
@@ -3706,10 +3805,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR", help=(
         "a checkout of the parent commit (e.g. unpacked with git archive "
-        "into .proof_tree/parent): its own ops.packed_superstep, ops.rank1 "
-        "and ops.build_rank_directory are loaded, their kernels built, and "
-        "each timed in turns with this tree's at every superstep and rank "
-        "timing point"))
+        "into .proof_tree/parent): its own ops.packed_superstep, ops.rank1, "
+        "ops.build_rank_directory, ops.segment_or and "
+        "ops.segmented_or_scan are loaded, their kernels built, and each "
+        "timed in turns with this tree's at every superstep, rank and "
+        "segment timing point"))
     opts = ap.parse_args()
     try:
         import torch

@@ -41,9 +41,9 @@ SOURCES = {
     }),
     "segment_or": ("segment_or.cu", {
         "segment_or_launch": ([_P, _P, _P, _L, _I, _I, _P], _I),
-        "segmented_or_scan_tile_rows": ([], _I),
-        "segmented_or_scan_launch": ([_P, _P, _P, _P, _P, _P, _L, _I, _P],
-                                     _I),
+        "segmented_or_scan_scratch_words": ([_L, _I], _L),
+        "segmented_or_scan_launch": ([_P, _P, _P, _P, _L, _I, ctypes.c_uint,
+                                      _P], _I),
     }),
     "rank_popcount": ("rank_popcount.cu", {
         "superblock_popcounts_launch": ([_P, _P, _L, _P], _I),
@@ -122,6 +122,39 @@ def library(name: str) -> ctypes.CDLL:
             f.restype = restype
         _LIBS[name] = lib
     return lib
+
+
+# -- scratch of the one-launch scans ------------------------------------------
+
+class SeqScratch:
+    """Scratch of a kernel that chains its blocks by decoupled look-back
+    through sequence-stamped descriptors: one zeroed int64 tensor per
+    (device, stream), so two streams never share one, and the next
+    launch's sequence number.  A new scratch is zero; the stamps spare
+    every later launch a clear, until they wrap at ``LIMIT``, when the
+    scratch is cleared once."""
+
+    LIMIT = 1 << 31
+
+    def __init__(self) -> None:
+        self._entries: Dict[tuple, list] = {}
+
+    def take(self, device: torch.device, stream: int, words: int):
+        """(scratch of at least ``words`` int64 words, sequence number)."""
+        key = (device.type, device.index, stream)
+        entry = self._entries.get(key)
+        if entry is None or entry[0].numel() < words:
+            entry = self._entries[key] = [
+                torch.zeros(words, dtype=torch.int64, device=device), 0]
+        entry[1] += 1
+        if entry[1] >= self.LIMIT:
+            entry[0].zero_()
+            entry[1] = 1
+        return entry[0], entry[1]
+
+    def drop(self, device: torch.device, stream: int) -> None:
+        """Forget a scratch whose launch failed (its state is unknown)."""
+        self._entries.pop((device.type, device.index, stream), None)
 
 
 # -- checks the wrappers share ------------------------------------------------

@@ -25,10 +25,9 @@ import torch
 from . import _build
 from .ref import SB_WORDS, rank1_window_ref, superblock_popcounts_ref
 
-# the directory mode's scratch: (device index, stream) -> [int64 words,
-# the last launch's sequence number]; see rank_directory_launch
-_SCRATCH = {}
-SEQ_LIMIT = 1 << 31
+# the directory mode's scratch, per (device, stream); see
+# rank_directory_launch
+_SCRATCH = _build.SeqScratch()
 
 # launches of each CUDA kernel since the last reset (see
 # ``repro_torch.kernels.reset_launch_counts``)
@@ -78,24 +77,6 @@ def superblock_popcounts_cuda(words: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _scratch(lib, device: torch.device, stream: int, NW: int):
-    """The directory scratch of this device and stream, large enough for
-    NW words, and the next launch's sequence number.  A new scratch is
-    zero; the flags' sequence numbers spare every later launch a
-    clear, until they wrap, when the scratch is cleared once."""
-    need = lib.rank_directory_scratch_words(NW)
-    key = (device.index, stream)
-    entry = _SCRATCH.get(key)
-    if entry is None or entry[0].numel() < need:
-        entry = _SCRATCH[key] = [torch.zeros(need, dtype=torch.int64,
-                                             device=device), 0]
-    entry[1] += 1
-    if entry[1] >= SEQ_LIMIT:
-        entry[0].zero_()
-        entry[1] = 1
-    return entry[0], entry[1]
-
-
 def rank_directory_cuda(words: torch.Tensor) -> torch.Tensor:
     """Launch on the current stream: the rank directory of [NW]
     contiguous int32 words on a CUDA device (NW % 16 == 0), a leading 0
@@ -111,11 +92,12 @@ def rank_directory_cuda(words: torch.Tensor) -> torch.Tensor:
     lib = _build.library("rank_popcount")
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        scratch, seq = _scratch(lib, words.device, stream, NW)
+        scratch, seq = _SCRATCH.take(words.device, stream,
+                                     lib.rank_directory_scratch_words(NW))
         rc = lib.rank_directory_launch(words.data_ptr(), out.data_ptr(),
                                        scratch.data_ptr(), NW, seq, stream)
     if rc != 0:
-        _SCRATCH.pop((words.device.index, stream), None)
+        _SCRATCH.drop(words.device, stream)
     _build.check_launch(rc, "superblock_popcounts (directory)")
     launches["superblock_popcounts"] += 1
     return out

@@ -6,11 +6,34 @@ their launch counters.
 The JAX package computes it on the TPU, which has no atomic scatter, as
 a tile-local segmented OR-scan over rows sorted by segment
 (``segmented_or_scan``, ``TILE_E`` rows a tile) plus a carry stitch and
-a pick of each segment's last row.  On the card it is one atomic-OR
-scatter that skips zero words (``csrc/segment_or.cu``); OR does not
-depend on order, so it is exact and needs no sorting.  The scan keeps a
-kernel of its own, over the whole array, for the contract the JAX
-package's tests hold (its first ``TILE_E`` rows equal the TPU kernel's).
+a pick of each segment's last row.  The scan keeps a kernel of its own
+here, over the whole array, for the contract the JAX package's tests
+hold (its first ``TILE_E`` rows equal the TPU kernel's).
+
+Both CUDA kernels (``csrc/segment_or.cu``) run a grid of resident blocks
+over tiles of 4,096 rows, 16 consecutive rows a thread, one column at a
+time; a block copies its next tile into shared memory asynchronously
+while it works on the current one (16-byte chunks at W = 1; a base
+address that is not 16-byte aligned, a ragged last tile or W > 1 take
+the per-word path of the same kernel).
+
+``segment_or`` is a zero fill (``torch.zeros``) and one launch of an
+atomic-OR scatter.  It reads the values (4*E*W bytes) and the id of each
+row with a non-zero word (at most 4*E), and writes the output (4*V*W):
+a thread ORs runs of equal (id, column) keys in registers, a segmented
+warp-shuffle scan joins them across threads and shared memory across
+warps, and one ``atomicOr`` goes out a run.  OR does not depend on
+order, so ids in any order are exact; sorted ids make the runs long,
+and a hub's word takes one atomic a tile it touches instead of one a
+warp (the atomics on one word serialise in L2).
+
+``segmented_or_scan`` is one launch, one pass: blocks take tiles in the
+order of an atomic ticket, publish each tile's aggregate as soon as its
+rows are staged, and chain the tiles by decoupled look-back through
+descriptors (one 64-bit word a tile and column: a sequence number, an
+inclusive bit, the value) in a scratch kept per (device, stream)
+(``_build.SeqScratch``), whose sequence numbers spare every launch a
+clear.  It reads 4*E*W + 4*E bytes and writes 4*E*W.
 """
 from __future__ import annotations
 
@@ -24,6 +47,10 @@ TILE_E = 1024  # rows per tile of the JAX package's scan kernel
 # launches of each CUDA kernel since the last reset (see
 # ``repro_torch.kernels.reset_launch_counts``)
 launches = {"segment_or": 0, "segmented_or_scan": 0}
+
+# the scan's descriptors and ticket counter, per (device, stream); see
+# segmented_or_scan_launch
+_SCRATCH = _build.SeqScratch()
 
 
 def _check_vals(name: str, vals: torch.Tensor, other: torch.Tensor) -> None:
@@ -46,9 +73,9 @@ def _check_segments(vals, seg_ids, num_segments: int) -> None:
 
 def segment_or_cuda(vals: torch.Tensor, seg_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
-    """Launch the scatter on the current stream.  vals: [E, W] int32
-    words, seg_ids: [E] int32, both contiguous on one CUDA device ->
-    [num_segments, W] int32 words."""
+    """Zero the output and launch the scatter on the current stream.
+    vals: [E, W] int32 words, seg_ids: [E] int32 in any order, both
+    contiguous on one CUDA device -> [num_segments, W] int32 words."""
     _check_segments(vals, seg_ids, num_segments)
     _build.check_cuda("segment_or_cuda", vals, seg_ids)
     E, W = vals.shape
@@ -78,8 +105,8 @@ def segmented_or_scan_cuda(vals: torch.Tensor,
                            flags: torch.Tensor) -> torch.Tensor:
     """Launch the scan on the current stream.  vals: [E, W] int32 words,
     flags: [E] int32 (nonzero where a segment starts; the JAX package
-    wants flags[0] = 1), both contiguous on one CUDA device -> [E, W]
-    int32 words."""
+    wants flags[0] = 1; row 0 starts a segment whatever its flag), both
+    contiguous on one CUDA device -> [E, W] int32 words, in one launch."""
     _check_vals("segmented_or_scan", vals, flags)
     _build.check_cuda("segmented_or_scan_cuda", vals, flags)
     E, W = vals.shape
@@ -87,17 +114,15 @@ def segmented_or_scan_cuda(vals: torch.Tensor,
     if E * W == 0:
         return out
     lib = _build.library("segment_or")
-    rows = lib.segmented_or_scan_tile_rows()
-    tiles = (E + rows - 1) // rows
-    last = torch.empty((tiles, W), dtype=torch.int32, device=vals.device)
-    carry = torch.empty_like(last)
-    first = torch.empty(tiles, dtype=torch.int32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
+        scratch, seq = _SCRATCH.take(
+            vals.device, stream, lib.segmented_or_scan_scratch_words(E, W))
         rc = lib.segmented_or_scan_launch(
             vals.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            last.data_ptr(), first.data_ptr(), carry.data_ptr(), E, W,
-            stream)
+            scratch.data_ptr(), E, W, seq, stream)
+    if rc != 0:
+        _SCRATCH.drop(vals.device, stream)
     _build.check_launch(rc, "segmented_or_scan")
     launches["segmented_or_scan"] += 1
     return out

@@ -211,8 +211,9 @@ def test_segment_or_cuda_matches_plain(cuda_device, E, W, V, density,
                                    (3_000_000, 1, 0.00001),
                                    (2_000_000, 2, 0.01)])
 def test_segmented_or_scan_cuda_matches_plain(cuda_device, E, W, p):
-    """One segment may span many tiles (p small), and the tile summaries
-    span several chunks of the carry pass (over 1024 tiles)."""
+    """One segment may span many tiles (p small), and the look-back may
+    walk back over many tiles without a flag (more than the 32 one step
+    of it reads)."""
     rng = np.random.default_rng(E + W)
     vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
     vals[rng.random((E, W)) < 0.9] = 0
@@ -221,6 +222,115 @@ def test_segmented_or_scan_cuda_matches_plain(cuda_device, E, W, p):
     got, want = _card_and_plain("segmented_or_scan", ops.segmented_or_scan,
                                 cuda_device, vals, flags)
     np.testing.assert_array_equal(got, want)
+
+
+def _long_segment(rng, E, W, first=130_000):
+    """Rows whose first ``first`` share one id and one segment (a hub over
+    many 4,096-row tiles), then sorted ids and sparse flags with values
+    other than 1 (negative ones too); flags[0] = 0, which the scan reads
+    as a start all the same."""
+    seg = np.concatenate([np.full(first, 5), np.sort(
+        rng.integers(6, 5_000, E - first))]).astype(np.int32)
+    flags = np.where(rng.random(E) < 0.001,
+                     rng.choice([2, -1, 7, 1 << 30], E), 0).astype(np.int32)
+    flags[:first] = 0
+    flags[first] = 3
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    vals[rng.random((E, W)) < 0.5] = 0
+    return vals, seg, flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_segment_kernels_cuda_segment_over_many_tiles(cuda_device, W):
+    """A segment of 130,000 rows (32 tiles of both kernels), E not a
+    multiple of the 16-row vectors, flags other than 1: both kernels bit
+    for bit with their plain versions, one launch each."""
+    rng = np.random.default_rng(W)
+    E = 262_147
+    vals, seg, flags = _long_segment(rng, E, W)
+    got, want = _card_and_plain("segment_or", ops.segment_or, cuda_device,
+                                vals, seg, 5_000)
+    np.testing.assert_array_equal(got, want)
+    got, want = _card_and_plain("segmented_or_scan", ops.segmented_or_scan,
+                                cuda_device, vals, flags)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3])
+def test_segment_kernels_cuda_unaligned_views(cuda_device, W):
+    """Values, ids and flags as contiguous views one word into larger
+    tensors (``data_ptr()`` not 16-byte aligned): the per-word path of
+    the same kernels, still exact."""
+    rng = np.random.default_rng(10 + W)
+    E = 50_001
+    vals, seg, flags = _long_segment(rng, E, W, first=20_000)
+    big = _on(cuda_device, np.concatenate(
+        [np.zeros((1, W), np.uint32), vals]))
+    v = big[1:]
+    ids = _on(cuda_device, np.concatenate([[0], seg]))[1:]
+    fl = _on(cuda_device, np.concatenate([[0], flags]))[1:]
+    assert v.is_contiguous() and v.data_ptr() % 16
+    assert ids.data_ptr() % 16 and fl.data_ptr() % 16
+    tk.reset_launch_counts()
+    got_or = ops.segment_or(v, ids, 5_000)
+    got_scan = ops.segmented_or_scan(v, fl)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["segment_or"] == 1
+    assert tk.launch_counts()["segmented_or_scan"] == 1
+    cpu_v = _on("cpu", vals)
+    assert torch.equal(got_or.cpu(), ops.segment_or(cpu_v, _on("cpu", seg),
+                                                    5_000))
+    assert torch.equal(got_scan.cpu(),
+                       ops.segmented_or_scan(cpu_v, _on("cpu", flags)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["sparse", "uniform"])
+def test_segment_or_cuda_unsorted_full_size(cuda_device, values):
+    """The packed path's full size (E = 3,954,840, V = 200,000) with
+    hub-law ids in no order: at most one atomic a non-zero word, exact."""
+    rng = np.random.default_rng(22)
+    E, V = 3_954_840, 200_000
+    w = 1.0 / np.arange(1, V + 1) ** 0.8
+    seg = rng.choice(V, size=E, p=w / w.sum()).astype(np.int32)
+    vals = rng.integers(0, 2**32, (E, 1), dtype=np.uint32)
+    if values == "sparse":
+        vals[rng.random(E) >= 0.085] = 0
+    got, want = _card_and_plain("segment_or", ops.segment_or, cuda_device,
+                                vals, seg, V)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segmented_or_scan_cuda_scratch_reused_and_two_streams(cuda_device):
+    """Three launches on one stream with no clear between them (the
+    descriptors' sequence numbers), at sizes that shrink and grow, then
+    one on each of two streams at once (a scratch of each): all exact."""
+    rng = np.random.default_rng(3)
+    cases = []
+    for E, W in [(400_000, 1), (9_000, 2), (700_000, 1)]:
+        vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+        flags = (rng.random(E) < 1e-4).astype(np.int32)
+        cases.append((vals, flags))
+    for vals, flags in cases:
+        got, want = _card_and_plain("segmented_or_scan",
+                                    ops.segmented_or_scan, cuda_device,
+                                    vals, flags)
+        np.testing.assert_array_equal(got, want)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [(_on(cuda_device, v), _on(cuda_device, f))
+              for v, f in (cases[0], cases[2])]
+    torch.cuda.synchronize()
+    outs = []
+    for s, (v, f) in zip(streams, inputs):
+        with torch.cuda.stream(s):
+            outs.append(ops.segmented_or_scan(v, f))
+    torch.cuda.synchronize()
+    for out, (v, f) in zip(outs, (cases[0], cases[2])):
+        assert torch.equal(out.cpu(), ops.segmented_or_scan(
+            _on("cpu", v), _on("cpu", f)))
 
 
 def _bitvector_words(rng, n_bits):

@@ -256,6 +256,46 @@ def test_segmented_or_scan_first_tile_matches_pallas():
                                   tile)
 
 
+@pytest.mark.parametrize("E,W", [(1, 1), (2999, 1), (1000, 3)])
+def test_segmented_or_scan_any_nonzero_flag_starts(E, W):
+    """Flags other than 1 (negative ones too) start segments, and row 0
+    starts one though its flag is 0, as in the JAX package's oracle."""
+    rng = np.random.default_rng(E * W)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    flags = np.where(rng.random(E) < 0.05,
+                     rng.choice([2, -1, 7, 1 << 30], E), 0).astype(np.int32)
+    flags[0] = 0
+    np.testing.assert_array_equal(
+        _port_segmented_or_scan(vals, flags),
+        np.asarray(jax.jit(jref.segmented_or_scan_ref)(
+            jnp.asarray(vals), jnp.asarray(flags))))
+
+
+def test_seq_scratch_is_per_stream_and_cleared_when_it_wraps():
+    """The look-back scans' scratch: one per (device, stream), zero when
+    new, kept while large enough, replaced when too small, and cleared
+    once when the sequence number reaches its limit."""
+    from repro_torch.kernels import _build
+    scratch = _build.SeqScratch()
+    cpu = torch.device("cpu")
+    a, seq_a = scratch.take(cpu, 1, 10)
+    b, seq_b = scratch.take(cpu, 2, 10)
+    assert a is not b and seq_a == seq_b == 1
+    assert not a.any() and a.dtype == torch.int64 and a.numel() == 10
+    a.fill_(5)
+    again, seq = scratch.take(cpu, 1, 4)
+    assert again is a and seq == 2
+    scratch.LIMIT = 4
+    same, seq = scratch.take(cpu, 1, 10)
+    assert same is a and seq == 3
+    wrapped, seq = scratch.take(cpu, 1, 10)
+    assert wrapped is a and seq == 1 and not a.any()
+    bigger, seq = scratch.take(cpu, 1, 11)
+    assert bigger is not a and seq == 1 and bigger.numel() == 11
+    scratch.drop(cpu, 1)
+    assert scratch.take(cpu, 1, 11)[1] == 1
+
+
 # -- rank ------------------------------------------------------------------------
 
 def _bitvector_words(rng, n_bits, density):
