@@ -6,7 +6,7 @@ batch of prompts, then decode greedily.
         [--model-axis 2] [--shards 4]
 
 With ``--model-axis`` or ``--shards`` it serves on a ``("data",
-"model")`` mesh (``launch.mesh.make_host_mesh``, the dense family)
+"model")`` mesh (``launch.mesh.make_host_mesh``, any family)
 under the serving rules: bf16 weights split over the model axis,
 replicated over the data axes; a batch smaller than the data axes
 serves under ``small_batch`` (the KV cache's sequence on the data

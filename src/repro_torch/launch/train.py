@@ -6,7 +6,7 @@
 
 With ``--model-axis`` or ``--shards`` it trains on a ``("data",
 "model")`` mesh from ``launch.mesh.make_host_mesh``: over every visible
-card, or ``--shards`` repeats of the one device (the dense family);
+card, or ``--shards`` repeats of the one device (any family);
 with neither, on one device.
 
 Trains on ``SyntheticLM`` from a random init: any decoder-only family

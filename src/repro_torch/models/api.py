@@ -15,8 +15,8 @@ Batches: ``tokens`` and ``labels`` [B, T]; a vlm batch adds
 ``patch_embeds`` [B, Np, d] and ``mask`` [B, Np + T] (labels cover the
 prefix too, masked out), an encdec batch ``frames`` [B, S, d].
 
-On a mesh (``ctx=ShardCtx(mesh, rules)``, the dense family) the
-parameters are :func:`shard_params`'s dict of
+On a mesh (``ctx=ShardCtx(mesh, rules)``, every family) the parameters
+are :func:`shard_params`'s dict of
 :class:`~repro_torch.sharding.Sharded`, a batch's tensors are global
 (each is laid out by :func:`batch_specs`) or already laid out so, and
 the logits come back sharded ``("batch", "vocab")``.
@@ -55,11 +55,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> nn.Module:
 
 
 def param_specs(cfg: ModelConfig, rules) -> Dict[str, shd.Spec]:
-    """Specs keyed by parameter name (the dense family)."""
+    """Specs keyed by parameter name."""
+    if cfg.family == "encdec":
+        return ed.param_specs(cfg, rules)
     return tf.param_specs(cfg, rules)
 
 
 def cache_specs(cfg: ModelConfig, rules):
+    if cfg.family == "encdec":
+        return ed.cache_specs(cfg, rules)
     return tf.cache_specs(cfg, rules)
 
 
@@ -121,34 +125,40 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Returns (loss, metrics); a moe loss adds ``MOE_AUX_WEIGHT`` times
     the load-balance loss, reported as ``moe_aux``.  On a mesh the loss
     is the vocab-parallel cross-entropy over every coordinate's rows."""
-    if ctx.mesh is not None:
-        tf.check_mesh_family(cfg)
-        logits, _, _ = tf.forward(model, cfg, batch["tokens"], ctx=ctx)
-        loss, n = softmax_xent_sharded(
-            logits, ctx.local(batch["labels"], "batch", None))
-        return loss, {"xent": loss.detach(), "tokens": n}
+    aux = None
     if cfg.family == "encdec":
-        enc_out = ed.encode(model, batch["frames"], cfg)
-        logits, _ = ed.decode(model, batch["tokens"], enc_out, cfg)
-        loss, n = softmax_xent(logits, batch["labels"])
-        return loss, {"xent": loss.detach(), "tokens": n}
-    if cfg.family == "vlm":
-        logits, _, _ = tf.forward(model, cfg, batch["tokens"],
-                                  prefix_embeds=batch["patch_embeds"])
-        loss, n = softmax_xent(logits, batch["labels"], batch["mask"])
-        return loss, {"xent": loss.detach(), "tokens": n}
-    logits, _, aux = tf.forward(model, cfg, batch["tokens"])
-    loss, n = softmax_xent(logits, batch["labels"])
+        enc_out = ed.encode(model, batch["frames"], cfg, ctx)
+        logits, _ = ed.decode(model, batch["tokens"], enc_out, cfg, ctx=ctx)
+    else:
+        logits, _, aux = tf.forward(model, cfg, batch["tokens"],
+                                    prefix_embeds=batch.get("patch_embeds"),
+                                    ctx=ctx)
+    mask = batch.get("mask") if cfg.family == "vlm" else None
+    if ctx.mesh is None:
+        loss, n = softmax_xent(logits, batch["labels"], mask)
+    else:
+        args = [ctx.local(batch["labels"], "batch", None)]
+        if mask is not None:
+            args.append(ctx.local(mask, "batch", None))
+        loss, n = softmax_xent_sharded(logits, *args)
     if cfg.family != "moe":
         return loss, {"xent": loss.detach(), "tokens": n}
     return loss + MOE_AUX_WEIGHT * aux, {"xent": loss.detach(), "tokens": n,
                                          "moe_aux": aux.detach()}
 
 
-def _last(logits: shd.Sharded) -> shd.Sharded:
+def _last(logits):
+    if not isinstance(logits, shd.Sharded):
+        return logits[:, -1]
     return shd.Sharded({c: t[:, -1] for c, t in logits.parts.items()},
                        (logits.shape[0], logits.shape[2]),
                        (logits.spec[0], logits.spec[2]), logits.mesh)
+
+
+def _device(ctx: ShardCtx, t):
+    if ctx.mesh is None:
+        return t.device
+    return shd.device(ctx.mesh, shd.coords(ctx.mesh)[0])
 
 
 @torch.no_grad()
@@ -158,44 +168,40 @@ def prefill_fn(model: Model, batch: Dict[str, torch.Tensor],
     build the decode cache.  Returns (logits_last, cache); on a mesh the
     cache rests as :func:`cache_specs` lays it out."""
     tokens = batch.get("tokens")
-    if ctx.mesh is not None:
-        dev = shd.device(ctx.mesh, shd.coords(ctx.mesh)[0])
-        cache = tf.init_cache(cfg, tokens.shape[0], max_len, dev, ctx=ctx)
-        logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache,
-                                      ctx=ctx)
-        return _last(logits), cache
     if cfg.family == "encdec":
-        enc_out = ed.encode(model, batch["frames"], cfg)
-        cache = ed.init_cache(cfg, tokens.shape[0], max_len,
-                              enc_out.shape[1], tokens.device)
-        cache["enc_kv"] = ed.enc_kv(model, enc_out, cfg)
-        logits, cache = ed.decode(model, tokens, None, cfg, cache=cache)
-        return logits[:, -1], cache
+        frames = batch["frames"]
+        enc_out = ed.encode(model, frames, cfg, ctx)
+        cache = ed.init_cache(cfg, tokens.shape[0], max_len, frames.shape[1],
+                              _device(ctx, tokens), ctx=ctx)
+        cache["enc_kv"] = ed.enc_kv(model, enc_out, cfg, ctx)
+        logits, cache = ed.decode(model, tokens, None, cfg, cache=cache,
+                                  ctx=ctx)
+        return _last(logits), cache
     first = tokens if tokens is not None else batch["patch_embeds"]
-    cache = tf.init_cache(cfg, first.shape[0], max_len, first.device)
+    cache = tf.init_cache(cfg, first.shape[0], max_len, _device(ctx, first),
+                          ctx=ctx)
     logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache,
-                                  prefix_embeds=batch.get("patch_embeds"))
-    return logits[:, -1], cache
+                                  prefix_embeds=batch.get("patch_embeds"),
+                                  ctx=ctx)
+    return _last(logits), cache
 
 
 @torch.no_grad()
 def decode_fn(model: Model, cache, tokens: torch.Tensor, cfg: ModelConfig,
               ctx: ShardCtx = NO_SHARD):
     """One decode step: tokens [B, 1].  Returns (logits [B, V], cache)."""
-    if ctx.mesh is not None:
+    if cfg.family == "encdec":
+        logits, cache = ed.decode(model, tokens, None, cfg, cache=cache,
+                                  ctx=ctx)
+    else:
         logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache,
                                       ctx=ctx)
-        return _last(logits), cache
-    if cfg.family == "encdec":
-        logits, cache = ed.decode(model, tokens, None, cfg, cache=cache)
-    else:
-        logits, cache, _ = tf.forward(model, cfg, tokens, cache=cache)
-    return logits[:, -1], cache
+    return _last(logits), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
                enc_len: int = 1024, ctx: ShardCtx = NO_SHARD):
     dev = resolve_device(device)
     if cfg.family == "encdec":
-        return ed.init_cache(cfg, batch, max_len, enc_len, dev)
+        return ed.init_cache(cfg, batch, max_len, enc_len, dev, ctx=ctx)
     return tf.init_cache(cfg, batch, max_len, dev, ctx=ctx)

@@ -52,6 +52,14 @@ class ShardCtx:
             return x
         return shd.shard(x, self.mesh, sp)
 
+    def parts(self, x, *names: Optional[str]) -> shd.Local:
+        """Each coordinate's part of ``x`` laid out by logical ``names``
+        (:meth:`local`); off the mesh, ``x`` is the one part of the one
+        coordinate ``()``."""
+        if self.mesh is None:
+            return {(): x}
+        return self.local(x, *names).parts
+
 
 NO_SHARD = ShardCtx()
 

@@ -4,20 +4,31 @@ package's ``models/encdec.py``.
 Encoder: bidirectional attention over precomputed speech-frame
 embeddings (the modality frontend is a stub: the caller gives [B, S, d]
 frames).  Decoder: causal self-attention + cross-attention over the
-encoder output.  Same layer loop and remat as the decoder-only model.
+encoder output.  The blocks, the layer loop, the remat and the mesh
+layout are the decoder-only model's (:mod:`.transformer`): on a mesh the
+encoder runs the same attention and MLP blocks, non-causal, its frames
+split on the sequence (``seq_sp``) between blocks; the cross-attention
+computes each coordinate's heads against the K/V of the whole encoder
+output.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .common import init_dense, rms_norm, rope_tables
-from .layers import attention_block, flash_attention, mlp_block
-from .transformer import (MLP, Attention, Layer, _kv_slot, _remat, bf16_tree,
-                          init_kv)
+from .. import sharding as shd
+from .common import NO_SHARD, ShardCtx, init_dense
+from .layers import attention_specs, flash_attention, mlp_specs
+from .transformer import (_TP_DIM, MLP, Attention, Layer, _add, _bf16, _entry,
+                          _heads_axes, _remat, attn_sublayer, cache_specs_kv,
+                          dotted, embed_tokens, flat_params, gathered,
+                          geo_of, kv_shapes, layer_specs, layer_weights,
+                          lm_head, mlp_sublayer, normed_input, parts,
+                          rope_parts, run_attn_layer, to_residual,
+                          zeros_tree)
 
 
 class DecLayer(nn.Module):
@@ -57,55 +68,68 @@ class EncDec(nn.Module):
             gen, (d, cfg.vocab_padded), fan_in=d, device=device))
 
 
-def _positions(B: int, T: int, start: int, device):
-    return (start + torch.arange(T, device=device))[None, :].expand(B, T)
-
-
-def _enc_layer(lw, x, cfg, rope):
-    h, _ = attention_block(lw["attn"], rms_norm(x, lw["ln1"], cfg.norm_eps),
-                           cfg, rope, causal=False)
-    x = x + h
-    return x + mlp_block(lw["mlp"], rms_norm(x, lw["ln2"], cfg.norm_eps))
-
-
-def encode(model: EncDec, frames: torch.Tensor, cfg) -> torch.Tensor:
+def encode(model, frames, cfg, ctx: ShardCtx = NO_SHARD):
     """frames: [B, S, d] (the stub frontend's output).  Returns [B, S, d]
-    bf16."""
-    x = frames.to(torch.bfloat16)
-    B, S, _ = x.shape
-    rope = rope_tables(_positions(B, S, 0, x.device), cfg.head_dim,
-                       cfg.rope_theta, torch.bfloat16)
+    bf16; on a mesh, :class:`~repro_torch.sharding.Sharded` ``("batch",
+    None, None)``: each coordinate's rows, the whole sequence."""
+    flat = flat_params(model)
+    x0 = {c: t.to(torch.bfloat16)
+          for c, t in ctx.parts(frames, "batch", None, None).items()}
+    B, S = frames.shape[0], frames.shape[1]
+    geo = geo_of(ctx, B, S)
+    rope = rope_parts(ctx, cfg, x0, None, 0, S)
+    x = shd.split(x0, geo.mesh, geo.seq, 1)
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in model.enc_layers:
-        lw = bf16_tree(layer)
-        x = (_remat(_enc_layer, lw, x, cfg, rope) if remat
-             else _enc_layer(lw, x, cfg, rope))
-    return rms_norm(x, model.enc_norm, cfg.norm_eps)
+    for lw in layer_weights(flat, "enc_layers", cfg.enc_layers):
+        x, _ = run_attn_layer(lw, x, cfg, geo, rope, None, 0, 0, 0, remat,
+                              causal=False)
+    out = normed_input(x, flat["enc_norm"], cfg, geo)
+    if geo.mesh is None:
+        return out[()]
+    return shd.Sharded(out, (B, S, cfg.d_model), (_entry(geo.rows), None,
+                                                   None), geo.mesh)
 
 
-def enc_kv(model: EncDec, enc_out: torch.Tensor, cfg) -> Dict[str, Any]:
+def enc_kv(model, enc_out, cfg, ctx: ShardCtx = NO_SHARD) -> Dict[str, Any]:
     """Each decoder layer's cross K/V of the encoder output, stacked:
-    ``[L, B, S, K, Dh]`` bf16."""
-    B, S, d = enc_out.shape
-    K, Dh = cfg.eff_num_kv_heads, cfg.head_dim
-    xb = enc_out.to(torch.bfloat16)
-    ks, vs = [], []
-    for layer in model.dec_layers:
-        c = layer.cross
-        ks.append(torch.matmul(xb, c.wk.to(torch.bfloat16).reshape(d, K * Dh))
-                  .reshape(B, S, K, Dh))
-        vs.append(torch.matmul(xb, c.wv.to(torch.bfloat16).reshape(d, K * Dh))
-                  .reshape(B, S, K, Dh))
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+    ``[L, B, S, K, Dh]`` bf16; on a mesh,
+    :class:`~repro_torch.sharding.Sharded` ``(None, "batch", None,
+    "kv_heads", None)``: each coordinate's rows and the KV heads its
+    cross-attention computes."""
+    flat = flat_params(model)
+    eo = parts(enc_out)
+    Dh = cfg.head_dim
+    got = {"k": {c: [] for c in eo}, "v": {c: [] for c in eo}}
+    heads = ()
+    for i in range(cfg.num_layers):
+        pre = f"dec_layers.{i}.cross."
+        heads = _heads_axes({n: flat[pre + n] for n in ("wq", "wk")})
+        for n in ("k", "v"):
+            w = gathered(_bf16(flat[pre + "w" + n]), 1 if heads else None)
+            for c, xb in eo.items():
+                B, S, d = xb.shape
+                K = w[c].shape[1]
+                got[n][c].append(torch.matmul(
+                    xb.to(torch.bfloat16), w[c].reshape(d, K * Dh))
+                    .reshape(B, S, K, Dh))
+    out = {n: {c: torch.stack(ts) for c, ts in v.items()}
+           for n, v in got.items()}
+    if ctx.mesh is None:
+        return {n: v[()] for n, v in out.items()}
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    shape = (cfg.num_layers, B, S, cfg.eff_num_kv_heads, Dh)
+    sp = (None, enc_out.spec[0], None, _entry(heads), None)
+    return {n: shd.Sharded(v, shape, sp, ctx.mesh) for n, v in out.items()}
 
 
 def cross_attention(p: Dict[str, torch.Tensor], x, kv, cfg):
     """x: [B, T, d]; ``kv``: dict(k, v [B, S, K, Dh]) precomputed; ``p``:
-    the layer's cross weights in bf16.  Bidirectional over the encoder
-    output, in KV chunks of ``cfg.attn_chunk`` (the reference's; the last
-    one padded and masked)."""
+    the layer's cross weights in bf16 (on a mesh with the heads split, a
+    coordinate's: the output is its partial sum).  Bidirectional over the
+    encoder output, in KV chunks of ``cfg.attn_chunk`` (the reference's;
+    the last one padded and masked)."""
     B, T, d = x.shape
-    H, Dh = cfg.eff_num_heads, cfg.head_dim
+    H, Dh = p["wq"].shape[1], cfg.head_dim
     q = torch.matmul(x.to(torch.bfloat16), p["wq"].reshape(d, H * Dh)) \
         .reshape(B, T, H, Dh)
     out = flash_attention(q, kv["k"], kv["v"], causal=False,
@@ -114,45 +138,54 @@ def cross_attention(p: Dict[str, torch.Tensor], x, kv, cfg):
                         p["wo"].reshape(H * Dh, d))
 
 
-def _dec_layer(lw, x, kv, cfg, rope, cache):
-    h, _ = attention_block(lw["attn"], rms_norm(x, lw["ln1"], cfg.norm_eps),
-                           cfg, rope, cache=cache)
-    x = x + h
-    x = x + cross_attention(lw["cross"], rms_norm(x, lw["lnx"], cfg.norm_eps),
-                            kv, cfg)
-    return x + mlp_block(lw["mlp"], rms_norm(x, lw["ln2"], cfg.norm_eps))
+def cross_sublayer(lw, x: shd.Local, kv: shd.Local, cfg, geo) -> shd.Local:
+    """``x + cross_attention(rms_norm(x, lnx))``: each coordinate's heads
+    against its part of the cross K/V."""
+    cross = lw["cross"]
+    heads = _heads_axes(cross)
+    w = {n: gathered(cross[n], _TP_DIM[n] if heads else None)
+         for n in ("wq", "wo")}
+    hn = normed_input(x, lw["lnx"], cfg, geo)
+    y = {c: cross_attention({n: t[c] for n, t in w.items()}, h, kv[c], cfg)
+         for c, h in hn.items()}
+    return _add(x, to_residual(y, geo, heads))
 
 
-def _remat_dec_layer(lw, x, kv, cfg, rope):
-    return _dec_layer(lw, x, kv, cfg, rope, None)
+def dec_layer(lw, x, kv, cfg, geo, rope, cache=None, i: int = 0,
+              start: int = 0):
+    x = attn_sublayer(lw, x, cfg, geo, rope, cache, i, start)
+    x = cross_sublayer(lw, x, kv, cfg, geo)
+    return mlp_sublayer(lw, x, cfg, geo)
 
 
-def decode(model: EncDec, tokens: torch.Tensor,
-           enc_out: Optional[torch.Tensor], cfg,
-           cache: Optional[dict] = None, kv: Optional[dict] = None):
+def decode(model, tokens: torch.Tensor, enc_out, cfg,
+           cache: Optional[dict] = None, kv: Optional[dict] = None,
+           ctx: ShardCtx = NO_SHARD):
     """Teacher-forced decode over [B, T] targets (``cache=None``) or
     decode into a cache (its self-attention KV written in place, its
     ``len`` advanced; the cross K/V from ``cache["enc_kv"]``).  Returns
-    (logits [B, T, V] bf16, new_cache)."""
-    bf = torch.bfloat16
-    x = F.embedding(tokens, model.embed.to(bf))
-    B, T, _ = x.shape
+    (logits [B, T, V] bf16, new_cache); on a mesh the logits are
+    :class:`~repro_torch.sharding.Sharded` ``("batch", None, "vocab")``."""
+    flat = flat_params(model)
+    B, T = tokens.shape[0], tokens.shape[1]
+    geo = geo_of(ctx, B, T)
+    x0 = embed_tokens(flat, ctx.parts(tokens, "batch", None), cfg)
     start = int(cache["len"]) if cache is not None else 0
-    rope = rope_tables(_positions(B, T, start, x.device), cfg.head_dim,
-                       cfg.rope_theta, bf)
+    rope = rope_parts(ctx, cfg, x0, None, start, T)
+    x = shd.split(x0, geo.mesh, geo.seq, 1)
     if kv is None:
         kv = cache["enc_kv"] if cache is not None else enc_kv(model, enc_out,
-                                                              cfg)
+                                                              cfg, ctx)
+    kp, vp = parts(kv["k"]), parts(kv["v"])
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    for i, layer in enumerate(model.dec_layers):
-        lw = bf16_tree(layer)
-        kv_l = {"k": kv["k"][i], "v": kv["v"][i]}
+    for i, lw in enumerate(layer_weights(flat, "dec_layers",
+                                         cfg.num_layers)):
+        kv_l = {c: {"k": kp[c][i], "v": vp[c][i]} for c in kp}
         if remat:
-            x = _remat(_remat_dec_layer, lw, x, kv_l, cfg, rope)
+            x = _remat(dec_layer, lw, x, kv_l, cfg, geo, rope)
         else:
-            x = _dec_layer(lw, x, kv_l, cfg, rope, _kv_slot(cache, i, start))
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = torch.matmul(x.to(bf), model.lm_head.to(bf))
+            x = dec_layer(lw, x, kv_l, cfg, geo, rope, cache, i, start)
+    logits = lm_head(flat, x, cfg, geo, B, T)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache)
@@ -160,11 +193,47 @@ def decode(model: EncDec, tokens: torch.Tensor,
     return logits, new_cache
 
 
-def init_cache(cfg, batch: int, max_len: int, enc_len: int,
-               device=None) -> Dict[str, Any]:
+def init_cache(cfg, batch: int, max_len: int, enc_len: int, device=None,
+               ctx: ShardCtx = NO_SHARD) -> Dict[str, Any]:
     """``kv``: the decoder's self-attention KV, ``[L, B, max_len, K, Dh]``;
     ``enc_kv``: the cross K/V, ``[L, B, enc_len, K, Dh]`` (prefill fills
-    it); ``len`` a host int."""
+    it); ``len`` a host int.  On a mesh each is
+    :class:`~repro_torch.sharding.Sharded` by :func:`cache_specs`."""
     L = cfg.num_layers
-    return {"len": 0, "kv": init_kv(cfg, L, batch, max_len, device),
-            "enc_kv": init_kv(cfg, L, batch, enc_len, device)}
+    shapes = {"kv": kv_shapes(cfg, L, batch, max_len),
+              "enc_kv": kv_shapes(cfg, L, batch, enc_len)}
+    specs = None if ctx.mesh is None else cache_specs(cfg, ctx.rules)
+    return {"len": 0, **zeros_tree(shapes, specs, device, ctx)}
+
+
+# --------------------------------------------------------------------------
+# specs
+# --------------------------------------------------------------------------
+def param_specs(cfg, rules) -> Dict[str, shd.Spec]:
+    """Specs keyed by the module's parameter names, in its order (the
+    reference's ``encdec.param_specs``)."""
+    s = functools.partial(shd.spec, rules)
+    enc = dotted(layer_specs(cfg, s, "dense"))
+    attn = attention_specs(cfg, s)
+    dec = dotted({"ln1": s(None), "attn": attn, "lnx": s(None),
+                  "cross": {n: attn[n] for n in ("wq", "wk", "wv", "wo")},
+                  "ln2": s(None), "mlp": mlp_specs(s)})
+    out = {"embed": s("vocab", "fsdp")}
+    for i in range(cfg.enc_layers):
+        out.update({f"enc_layers.{i}.{k}": v for k, v in enc.items()})
+    out["enc_norm"] = s(None)
+    for i in range(cfg.num_layers):
+        out.update({f"dec_layers.{i}.{k}": v for k, v in dec.items()})
+    out["final_norm"] = s(None)
+    out["lm_head"] = s("fsdp", "vocab")
+    return out
+
+
+def cache_specs(cfg, rules) -> Dict[str, Any]:
+    """Specs of :func:`init_cache`'s tree: the self-attention KV as the
+    decoder-only model's, the cross K/V on ``cache_batch`` and
+    ``cache_heads``."""
+    s = functools.partial(shd.spec, rules)
+    enc = s(None, "cache_batch", None, "cache_heads", None)
+    return {"len": s(), "kv": cache_specs_kv(s),
+            "enc_kv": {"k": enc, "v": enc}}

@@ -11,8 +11,9 @@ are; no fused attention kernel is called.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +45,16 @@ def attention_specs(cfg, s):
 def mlp_specs(s):
     return {"wg": s("fsdp", "ffn"), "wu": s("fsdp", "ffn"),
             "wd": s("ffn", "fsdp")}
+
+
+def moe_specs(cfg, s):
+    """The experts on ``experts`` (the model axis), their ``d`` dim on
+    ``fsdp``; the router whole; the shared experts an MLP's."""
+    p = {"router": s(None, None), "wg": s("experts", "fsdp", None),
+         "wu": s("experts", "fsdp", None), "wd": s("experts", None, "fsdp")}
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_specs(s)
+    return p
 
 
 def _online_softmax_chunk(qg, k, v, mask, carry):
@@ -276,10 +287,13 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_router(p: Dict[str, torch.Tensor], xg, cfg):
+def moe_router(p: Dict[str, torch.Tensor], xg, cfg,
+               top_e: Optional[torch.Tensor] = None):
     """Router logits ``[..., E]`` f32 -> (probs, top_p, top_e): padded
     experts (``eff_num_experts > num_experts``) get -1e30 and are never
-    chosen; the top-k probabilities are renormalised to sum to 1.
+    chosen; the top-k probabilities are renormalised to sum to 1.  With
+    ``top_e`` given (``[..., k]``, another run's choice: see
+    :func:`routing_log`), those experts are taken instead of the top k.
 
     The product is an f32 matmul of the bf16 operands (each product exact
     in f32).  The reference casts its bf16 einsum to f32 at once, and XLA
@@ -292,7 +306,10 @@ def moe_router(p: Dict[str, torch.Tensor], xg, cfg):
         pad = torch.arange(E, device=logits.device) >= cfg.num_experts
         logits = logits.masked_fill(pad, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = top_k(probs, cfg.top_k)
+    if top_e is None:
+        top_p, top_e = top_k(probs, cfg.top_k)
+    else:
+        top_p = probs.gather(-1, top_e)
     top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
     return probs, top_p, top_e
 
@@ -315,15 +332,57 @@ def queue_positions(top_e: torch.Tensor, E: int, C: int):
     return pos, pos < C
 
 
-def moe_block_dropless(p: Dict[str, torch.Tensor], x, cfg):
+class RoutingLog(list):
+    """What :func:`routing_log` yields: one entry a MoE layer call, in call
+    order, ``{"top_e": [B, T, k], "kept": [B, T, k] bool}`` over the
+    whole batch (a mesh's rows in order); ``replay`` the log whose
+    choices the calls take, or None."""
+
+    replay: Optional[list] = None
+
+
+_LOG: Optional[RoutingLog] = None
+
+
+@contextlib.contextmanager
+def routing_log(replay: Optional[list] = None):
+    """While open, every MoE layer (``transformer.moe_sublayer``) appends
+    the experts its block routed each token to and the (token, slot)
+    pairs it kept.  With ``replay`` (another log of the same layers), the
+    i-th call routes each token to the experts ``replay[i]`` has for it
+    (its last T positions: a decoded token takes the last position of a
+    prefill), weighted by this call's own probabilities.  Off, the
+    blocks pay one test of a global."""
+    global _LOG
+    log = RoutingLog()
+    log.replay = replay
+    saved, _LOG = _LOG, log
+    try:
+        yield log
+    finally:
+        _LOG = saved
+
+
+def active_routing_log() -> Optional[RoutingLog]:
+    return _LOG
+
+
+def moe_block_dropless(p: Dict[str, torch.Tensor], x, cfg,
+                       experts: Optional[Tuple[int, int]] = None,
+                       route=None):
     """Capacity-free MoE for decode (small token counts): every expert is
     applied to every token and combined by the routing weights, so no
-    token is dropped.  Returns (out, 0.0)."""
+    token is dropped.  With ``experts`` = (e0, e1), ``p``'s expert
+    weights are those experts' only (a mesh coordinate's) and the output
+    is their partial sum.  ``route``: :func:`moe_router`'s output for
+    ``x``'s tokens, if the caller has it.  Returns (out, 0.0)."""
     B, T, d = x.shape
     E = cfg.eff_num_experts
     xt = x.reshape(B * T, d).to(torch.bfloat16)
-    _, top_p, top_e = moe_router(p, xt, cfg)
+    _, top_p, top_e = moe_router(p, xt, cfg) if route is None else route
     w = (F.one_hot(top_e, E).float() * top_p[..., None]).sum(dim=1)  # [N, E]
+    if experts is not None:
+        w = w[:, experts[0]:experts[1]]
     h = silu(torch.matmul(xt, p["wg"])) * torch.matmul(xt, p["wu"])
     out = torch.matmul(h, p["wd"])                                   # [E,N,d]
     y = torch.einsum("end,ne->nd", out.float(), w).reshape(B, T, d)
@@ -332,38 +391,95 @@ def moe_block_dropless(p: Dict[str, torch.Tensor], x, cfg):
     return y.to(x.dtype), 0.0
 
 
-def moe_block(p: Dict[str, torch.Tensor], x, cfg, group_size: int = 0):
+def moe_block(p: Dict[str, torch.Tensor], x, cfg, group_size: int = 0,
+              experts: Optional[Tuple[int, int]] = None, route=None,
+              batch=None, row0: int = 0, kept: Optional[list] = None):
     """x: [B, T, d].  Top-k routing with per-group expert capacity
     ``C = g*k/E * capacity_factor`` (GShard); a dropped (token, slot)
     passes through the residual only.  Groups have a fixed size
     ``g`` (the last one padded with zero rows), so a token's queue
     position never depends on the tokens after it.  The reference maps
     over the groups one at a time; here they are a leading batch axis.
-    Dispatch and combine are its one-hot products, in bf16.  Returns
-    (out, aux_loss)."""
+    Dispatch and combine are its one-hot products, in bf16.
+
+    On a mesh coordinate, ``x`` is the coordinate's rows of the batch
+    (from ``row0``), ``route`` their routing (:func:`moe_router` of
+    their flattened tokens), ``batch`` = (probs ``[N, E]``, top_e ``[N,
+    k]``) the whole batch's, gathered over the data axes: the groups run
+    over the batch's flattened tokens, so the queue positions, the drops
+    and the aux loss are one device's.  The coordinate dispatches only
+    its own tokens, to their slots of the ``experts`` = (e0, e1) that
+    ``p`` holds, in the groups its tokens lie in (a static C slots an
+    expert: the slots of the rows on other coordinates stay zero).  The
+    output is ``x``'s rows' partial sum over those experts (and the
+    shared experts ``p`` holds).  ``kept``: a list that gets the batch's
+    kept pairs ``[N, k]``.  Returns (out, aux_loss)."""
     B, T, d = x.shape
-    E = cfg.eff_num_experts
-    N = B * T
+    E, k = cfg.eff_num_experts, cfg.top_k
     g = group_size or cfg.moe_group_size
+    Nl = B * T
+    xt = x.reshape(Nl, d)
+    probs, top_p, top_e = moe_router(p, xt, cfg) if route is None else route
+    probs_b, top_e_b = (probs, top_e) if batch is None else batch
+    N = top_e_b.shape[0]
     ng = -(-N // g)
-    xg = F.pad(x.reshape(N, d), (0, 0, 0, ng * g - N)).reshape(ng, g, d)
+    pad = ng * g - N
+    if pad:
+        # a group's padding, zero rows: uniform probabilities, the first
+        # k experts (the stable sort's ties)
+        zp, zt, ze = moe_router(p, xt.new_zeros(1, d), cfg)
+        probs_b = torch.cat([probs_b, zp.expand(pad, E)])
+        top_e_b = torch.cat([top_e_b, ze.expand(pad, k)])
+        if Nl == N:
+            top_p = torch.cat([top_p, zt.expand(pad, k)])
     C = capacity(cfg, g)
     bf = torch.bfloat16
 
-    probs, top_p, top_e = moe_router(p, xg, cfg)              # [ng, g, k]
-    pos, within = queue_positions(top_e, E, C)
-    ge = F.one_hot(top_e, E).to(bf)                           # [ng,g,k,E]
-    pc = F.one_hot(torch.where(within, pos, C), C + 1).to(bf)[..., :C]
-    disp = torch.einsum("nske,nskc->nsec", ge, pc)            # [ng,g,E,C]
-    comb = torch.einsum("nske,nskc->nsec", ge * top_p.to(bf)[..., None], pc)
-    xin = torch.einsum("nsec,nsd->necd", disp, xg.to(bf))     # [ng,E,C,d]
-    h = silu(torch.matmul(xin, p["wg"])) * torch.matmul(xin, p["wu"])
-    out = torch.matmul(h, p["wd"])                            # [ng,E,C,d]
-    y = torch.einsum("necd,nsec->nsd", out, comb)
+    pos, within = queue_positions(top_e_b.reshape(ng, g, k), E, C)
     # load-balance aux loss (Switch): E * mean(frac_tokens * mean_prob)
-    frac = ge.float().sum(dim=2).mean(dim=1)                  # [ng, E]
-    aux = E * (frac * probs.mean(dim=1)).sum(dim=-1)          # [ng]
-    y = y.reshape(ng * g, d)[:N].reshape(B, T, d)
+    frac = F.one_hot(top_e_b, E).float().sum(dim=1).reshape(ng, g, E) \
+        .mean(dim=1)                                          # [ng, E]
+    aux = E * (frac * probs_b.reshape(ng, g, E).mean(dim=1)).sum(dim=-1)
+    if kept is not None:
+        kept.append(within.reshape(ng * g, k)[:N])
+
+    a = row0 * T                                  # our first token
+    if Nl == N:
+        # the whole batch: the groups as they are (their padding too)
+        ngl, off = ng, 0
+        xl = F.pad(xt, (0, 0, 0, pad)).reshape(ng, g, d)
+        top_e_l, top_p_l = top_e_b.reshape(ng, g, k), top_p.reshape(ng, g, k)
+        pos_l, keep = pos, within
+    else:
+        G0, G1 = a // g, (a + Nl - 1) // g
+        ngl = G1 - G0 + 1
+        # our tokens in their groups: [1, Nl] inside one group, else
+        # [ngl, g] with the others' places empty (zero rows, not kept)
+        s = Nl if ngl == 1 else g
+        lo = a if ngl == 1 else G0 * g
+        off, after = a - lo, lo + ngl * s - a - Nl
+        xl, top_e_l, top_p_l = (
+            F.pad(t, (0, 0, off, after)) if off or after else t
+            for t in (xt, top_e, top_p))
+        xl, top_e_l, top_p_l = (t.reshape(ngl, s, -1)
+                                for t in (xl, top_e_l, top_p_l))
+        pos_l, keep = (t.reshape(ng * g, k)[lo:lo + ngl * s]
+                       .reshape(ngl, s, k) for t in (pos, within))
+        if off or after:
+            i = torch.arange(ngl * s, device=x.device)
+            keep = keep & ((i >= off) & (i < off + Nl)).reshape(ngl, s, 1)
+    ge = F.one_hot(top_e_l, E).to(bf)                         # [ngl,s,k,E]
+    if experts is not None:
+        ge = ge[..., experts[0]:experts[1]]
+    pc = F.one_hot(torch.where(keep, pos_l, C), C + 1).to(bf)[..., :C]
+    disp = torch.einsum("nske,nskc->nsec", ge, pc)            # [ngl,s,E,C]
+    comb = torch.einsum("nske,nskc->nsec", ge * top_p_l.to(bf)[..., None],
+                        pc)
+    xin = torch.einsum("nsec,nsd->necd", disp, xl.to(bf))     # [ngl,E,C,d]
+    h = silu(torch.matmul(xin, p["wg"])) * torch.matmul(xin, p["wu"])
+    out = torch.matmul(h, p["wd"])                            # [ngl,E,C,d]
+    y = torch.einsum("necd,nsec->nsd", out, comb)
+    y = y.reshape(-1, d)[off:off + Nl].reshape(B, T, d)
     if "shared" in p:
         y = y + mlp_block(p["shared"], x)
     return y.to(x.dtype), aux.mean()

@@ -25,10 +25,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     return (per_tok * mask).sum() / n, n
 
 
-def softmax_xent_sharded(logits, labels):
-    """The vocab-parallel :func:`softmax_xent` (mean over every position)
-    on a mesh: ``logits`` :class:`~repro_torch.sharding.Sharded`
-    ``("batch", None, "vocab")``, ``labels`` laid out like its rows.
+def softmax_xent_sharded(logits, labels, mask=None):
+    """The vocab-parallel :func:`softmax_xent` on a mesh: ``logits``
+    :class:`~repro_torch.sharding.Sharded` ``("batch", None, "vocab")``,
+    ``labels`` (and ``mask``, 1 = count; else every position counts)
+    laid out like its rows.
     Each coordinate reduces its vocab shard: the max and the sum of
     ``exp`` are all-reduced over the vocab axes, and the label logit
     comes from the shard that owns the label (the others add 0), so no
@@ -55,10 +56,18 @@ def softmax_xent_sharded(logits, labels):
     owners = sorted((c for c in lg if shd.index(mesh, c, others) == 0),
                     key=lambda c: shd.index(mesh, c, rows))
     dev = shd.device(mesh, owners[0])
-    total = None
+    total = count = None
     for c in owners:
         per_tok = torch.log(se[c]) + m[c][..., 0] - picked[c]
+        if mask is not None:
+            w = mask.parts[c].float()
+            per_tok = per_tok * w
+            k = w.sum().to(dev)
+            count = k if count is None else count + k
         part = per_tok.sum().to(dev)
         total = part if total is None else total + part
-    n = logits.shape[0] * logits.shape[1]
+    if mask is None:
+        n = logits.shape[0] * logits.shape[1]
+        return total / n, n
+    n = torch.clamp(count, min=1.0)
     return total / n, n

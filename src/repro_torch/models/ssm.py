@@ -12,7 +12,7 @@ shared across heads).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,14 +115,35 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y, S
 
 
-def mamba_block(p: Dict[str, torch.Tensor], x, cfg,
-                state: Optional[Dict[str, torch.Tensor]] = None):
-    """x: [B, T, d].  ``p``: the layer's mamba weights in bf16.  ``state``:
-    None (train, from zero) or dict (``conv_x``/``conv_B``/``conv_C``
-    rolling buffers, ``ssm`` [B,H,N,P] f32).  Returns (out [B,T,d] in x's
-    dtype, new_state)."""
+def mamba_specs(cfg, s):
+    """Specs of a mamba layer's weights by logical names, the reference's
+    table: ``wz``/``wx`` column-parallel on ``ffn`` (``d_inner``), ``wo``
+    row-parallel, ``conv_x`` and ``norm`` split alike; the rest whole
+    (``wB``, ``wC``, ``wdt`` on ``fsdp`` only)."""
+    return {
+        "wz": s("fsdp", "ffn"), "wx": s("fsdp", "ffn"),
+        "wB": s("fsdp", None), "wC": s("fsdp", None),
+        "wdt": s("fsdp", None), "dt_bias": s(None),
+        "A_log": s(None), "D": s(None),
+        "conv_x": s(None, "ffn"), "conv_B": s(None, None),
+        "conv_C": s(None, None),
+        "norm": s("ffn"), "wo": s("ffn", "fsdp"),
+    }
+
+
+def mamba_mix(p: Dict[str, torch.Tensor], x, cfg,
+              state: Optional[Dict[str, torch.Tensor]] = None,
+              heads: Optional[Tuple[int, int]] = None):
+    """The mamba block up to its gated norm.  x: [B, T, d].  ``p``: the
+    layer's mamba weights in bf16; with ``heads`` = (h0, h1), ``wz``,
+    ``wx`` and ``conv_x`` hold those SSM heads' columns only (a mesh
+    coordinate's), and the head-wise ``dt``, ``dt_bias``, ``A_log``, ``D``
+    are sliced to them.  ``state``: None (train, from zero) or dict
+    (``conv_x``/``conv_B``/``conv_C`` rolling buffers, ``ssm`` [B,H,N,P]
+    f32, those heads').  Returns (``y * silu(z)`` [B, T, H*P] f32,
+    new_state)."""
     B, T, d = x.shape
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    P = cfg.ssm_headdim
     bf, f32 = torch.bfloat16, torch.float32
     xb = x.to(bf)
     z = torch.matmul(xb, p["wz"])
@@ -130,6 +151,12 @@ def mamba_block(p: Dict[str, torch.Tensor], x, cfg,
     Bm = torch.matmul(xb, p["wB"])
     Cm = torch.matmul(xb, p["wC"])
     dt = torch.matmul(xb, p["wdt"])
+    A_log, dt_bias, D = p["A_log"], p["dt_bias"], p["D"]
+    if heads is not None:
+        h0, h1 = heads
+        dt, A_log, dt_bias, D = (dt[..., h0:h1], A_log[h0:h1],
+                                 dt_bias[h0:h1], D[h0:h1])
+    H = xi.shape[-1] // P
 
     decoding = state is not None
     xi, ncx = _causal_conv(xi, p["conv_x"].to(xi.dtype),
@@ -140,8 +167,8 @@ def mamba_block(p: Dict[str, torch.Tensor], x, cfg,
                            state["conv_C"] if decoding else None)
     xi, Bm, Cm = silu(xi), silu(Bm), silu(Cm)
 
-    A = -torch.exp(p["A_log"].to(f32))
-    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32)[None, None, :])
+    A = -torch.exp(A_log.to(f32))
+    dt = F.softplus(dt.to(f32) + dt_bias.to(f32)[None, None, :])
     xh = xi.reshape(B, T, H, P)
 
     if decoding and T == 1:
@@ -156,23 +183,20 @@ def mamba_block(p: Dict[str, torch.Tensor], x, cfg,
         y, S_new = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
                                 state["ssm"] if decoding else None)
     new_state = {"conv_x": ncx, "conv_B": ncB, "conv_C": ncC, "ssm": S_new}
-    y = y + xh.to(f32) * p["D"].to(f32)[None, None, :, None]
+    y = y + xh.to(f32) * D.to(f32)[None, None, :, None]
     y = y.reshape(B, T, H * P)
-    y = rms_norm(y * silu(z.to(f32)), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y.to(bf), p["wo"])
-    return out.to(x.dtype), new_state
+    return y * silu(z.to(f32)), new_state
 
 
-def init_mamba_state(cfg, batch: int, layers: int, device=None):
-    """Zeroed decode state of ``layers`` layers, stacked on a leading
-    axis: conv buffers bf16, the SSM state f32."""
-    W = cfg.conv_width
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-
-    def zeros(*shape, dtype=torch.bfloat16):
-        return torch.zeros((layers, batch) + shape, dtype=dtype,
-                           device=device)
-
-    return {"conv_x": zeros(W - 1, cfg.d_inner), "conv_B": zeros(W - 1, N),
-            "conv_C": zeros(W - 1, N),
-            "ssm": zeros(H, N, P, dtype=torch.float32)}
+def mamba_out(p: Dict[str, torch.Tensor], y, cfg, sumsq=None):
+    """The gated rms norm over ``d_inner``, then ``wo``: bf16 [B, T, d].
+    ``sumsq``: the sum of ``y``'s squares over the whole ``d_inner``
+    ([B, T, 1] f32) when ``y`` holds only some heads' columns (a mesh
+    coordinate's, its ``norm`` and ``wo`` rows alike): the output is
+    then that coordinate's partial sum."""
+    if sumsq is None:
+        y = rms_norm(y, p["norm"], cfg.norm_eps)
+    else:
+        scale = torch.rsqrt(sumsq / cfg.d_inner + cfg.norm_eps).to(y.dtype)
+        y = y * scale * (1.0 + p["norm"]).to(y.dtype)
+    return torch.matmul(y.to(torch.bfloat16), p["wo"])

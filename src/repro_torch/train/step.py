@@ -5,7 +5,7 @@ The state is ``{"params": model, "opt": {"mu", "nu", "step"}}``: the
 model (``api.init_params``'s, any family) has its parameters replaced
 in place by a train step, the moments are dicts of
 parameter name -> f32 tensor, and ``step`` an int32 scalar.  On a mesh
-(the dense family) the params are ``api.shard_params``'s dict of
+(every family) the params are ``api.shard_params``'s dict of
 :class:`~repro_torch.sharding.Sharded` f32 parts (leaves of autograd)
 and the moments are sharded alike.
 """

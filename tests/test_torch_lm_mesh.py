@@ -248,24 +248,40 @@ def test_no_coordinate_holds_the_full_ffn_or_vocab(arch, monkeypatch):
 
 
 def test_mesh_of_another_device_kind_or_family_raises():
+    """A mesh of another device kind than the trainer's, and a model axis
+    that does not divide the devices, raise; every family runs on the
+    mesh now: olmoe's smoke variant inits and steps on the (2, 2) mesh,
+    its experts split over the model axis and its aux loss reported."""
     cfg = smoke_variant(get_config("smollm-135m"))
     data = SyntheticLM(cfg.vocab_size, 8, 2)
     other = Mesh([["cuda:0", "cuda:0"]], ("data", "model"))
     with pytest.raises(ValueError, match="cuda"):
         loop.train(cfg, data, 1, device="cpu", mesh=other, log_fn=print)
     moe = smoke_variant(get_config("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        tstep.init_state(moe, 0, "cpu", mesh=mesh22())
+    state = tstep.init_state(moe, 0, "cpu", mesh=mesh22())
+    wg = state["params"]["layers.0.moe.wg"]
+    assert wg.spec == ("model", "data", None)
+    assert {tuple(t.shape) for t in wg.parts.values()} == {
+        (moe.eff_num_experts // 2, moe.d_model // 2, moe.expert_d_ff)}
+    fn = tstep.make_train_step(moe, optim.AdamWConfig(), mesh=mesh22())
+    state, m = fn(state, batch(moe))
+    assert np.isfinite(float(m["loss"])) and float(m["moe_aux"]) > 0
+    assert isinstance(state["params"]["embed"], shd.Sharded)
     with pytest.raises(ValueError, match="does not divide"):
         make_host_mesh(model=3, shards=4, device="cpu")
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
-def test_mesh_resume_after_failure_is_exact(tmp_path, mesh_shape):
+@pytest.mark.parametrize("arch,mesh_shape", [
+    pytest.param("qwen3-4b", (2, 2), id="mesh_shape0"),
+    pytest.param("qwen3-4b", (1, 4), id="mesh_shape1"),
+    pytest.param("zamba2-7b", (2, 2), id="zamba2-7b")])
+def test_mesh_resume_after_failure_is_exact(tmp_path, arch, mesh_shape):
     """``loop.train(mesh=)`` failing at step 3 and resuming from its step-2
     checkpoint ends in the uninterrupted mesh run's state
-    (``rtol=1e-5, atol=1e-6``) and losses."""
-    cfg = smoke_variant(get_config("qwen3-4b"))
+    (``rtol=1e-5, atol=1e-6``) and losses: the dense qwen3 on two
+    meshes, and the hybrid (mamba layers, the shared attention block) on
+    the (2, 2) mesh."""
+    cfg = smoke_variant(get_config(arch))
     mesh = make_host_mesh(model=mesh_shape[1], shards=4, device="cpu")
     data = SyntheticLM(cfg.vocab_size, 16, 4)
     kw = dict(num_steps=6, save_every=2, log_every=0, log_fn=lambda s: None,

@@ -191,9 +191,101 @@ def test_state_and_cache_specs_equal_reference(arch, mesh_name):
 
 
 def test_mesh_path_is_the_dense_family_only():
+    """Kept under its first name (the mesh path ran the dense family
+    only): every family's parameters now take their specs from the one
+    table, olmoe's experts on the model axis with their ``d`` on the
+    data axes, its router whole."""
     rules = shd.make_rules(port_mesh((2, 2)), get_config("olmoe-1b-7b"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        api.param_specs(get_config("olmoe-1b-7b"), rules)
+    specs = api.param_specs(get_config("olmoe-1b-7b"), rules)
+    assert specs["layers.0.moe.wg"] == ("model", "data", None)
+    assert specs["layers.0.moe.wd"] == ("model", None, "data")
+    assert specs["layers.0.moe.router"] == (None, None)
+
+
+FAMILIES = ["qwen2-moe-a2.7b", "olmoe-1b-7b", "paligemma-3b", "mamba2-2.7b",
+            "zamba2-7b", "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("mesh_name", ["2x2", "2x4", "pod2x2x2"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_state_and_cache_specs_equal_reference(arch, mesh_name):
+    """The other families' ``state_specs`` and ``api.cache_specs``,
+    sanitized, equal the reference's leaf for leaf (every stacked group:
+    ``layers``, ``enc_layers``, ``dec_layers``; the hybrid's
+    ``shared_attn``; the mamba state, the cross K/V), under the training,
+    serving and small-batch rules."""
+    shape = MESHES[mesh_name]
+    cfg, rcfg = get_config(arch), rget_config(arch)
+    pm, fm = port_mesh(shape), FakeMesh(shape)
+    target = _ref_target(rcfg)
+    shapes = _port_flat_shapes(target["params"])
+    for kw in ({}, {"serving": True}, {"small_batch": True}):
+        rules, rrules = shd.make_rules(pm, cfg, **kw), rshd.make_rules(
+            fm, rcfg, **kw)
+        ours = tstep.state_specs(cfg, rules)
+        want = _spec_leaves(rshd.sanitize_spec_tree(
+            rstep.state_specs(rcfg, rrules), target, fm)["params"])
+        assert sorted(ours["params"]) == sorted(shapes)
+        for name, sp in ours["params"].items():
+            san = shd.sanitize_spec(sp, shapes[name], pm)
+            key = name.split(".")
+            if key[0] in convert.STACKED:
+                key, san = [key[0]] + key[2:], (None,) + san
+            assert san == want["/".join(key)], (kw, name)
+        B, S = 4, 64
+        struct = rapi.cache_struct(rcfg, B, S)
+        want = _spec_leaves(rshd.sanitize_spec_tree(
+            rapi.cache_specs(rcfg, rrules), struct, fm))
+        dims = {"/".join(str(p.key) for p in path): leaf.shape
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    struct)[0]}
+        got = _spec_leaves(jax.tree.map(
+            lambda sp: P(*sp), api.cache_specs(cfg, rules),
+            is_leaf=lambda x: isinstance(x, tuple)))
+        assert got.pop("len") == want.pop("len") == ()
+        leaves = sorted(k for k in want if not k.endswith("/len"))
+        assert sorted(got) == leaves
+        for k in leaves:
+            assert shd.sanitize_spec(tuple(got[k]), dims[k], pm) == \
+                want[k], (kw, k)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_mesh_state_layout_and_crossing(arch, tmp_path):
+    """``init_state(mesh=)`` of every family on the (2, 2) mesh: each leaf
+    a copy of its slice of the one-device state; a one-device trainer
+    checkpoint restores onto the mesh, and the mesh's back onto one
+    device, bit for bit (an elastic restore); and
+    ``convert.lm_params_from_reference(tree, mesh=)`` shards the
+    reference's parameters alike."""
+    cfg = smoke_variant(get_config(arch))
+    mesh = make_host_mesh(model=2, shards=4, device="cpu")
+    one = tstep.init_state(cfg, 3, "cpu")
+    state = tstep.init_state(cfg, 5, "cpu", mesh=mesh)
+    flat = dict(one["params"].named_parameters())
+    assert list(state["params"]) == list(flat)
+    loop.save_train_state(str(tmp_path / "one"), 1, one,
+                          extra={"data": {"step": 1}})
+    loop.restore_train_state(str(tmp_path / "one"), state, verify=True)
+    for name, sh in state["params"].items():
+        for c, part in sh.parts.items():
+            assert torch.equal(part.detach(), flat[name].detach()[
+                shd._slices(sh.shape, sh.spec, mesh, c)]), (name, c)
+    loop.save_train_state(str(tmp_path / "mesh"), 1, state,
+                          extra={"data": {"step": 1}})
+    back = tstep.init_state(cfg, 7, "cpu")
+    loop.restore_train_state(str(tmp_path / "mesh"), back, verify=True)
+    a = ckpt._flatten(loop.train_state_tree(back))
+    b = ckpt._flatten(loop.train_state_tree(one))
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), k
+    tree = convert.lm_params_to_reference(one["params"])
+    specs = {n: sh.spec for n, sh in state["params"].items()}
+    sharded = convert.lm_params_from_reference(tree, mesh, specs)
+    for name, sh in sharded.items():
+        assert sh.spec == specs[name]
+        assert torch.equal(shd.unshard(sh), flat[name].detach()), name
 
 
 # -- sharded tensors -------------------------------------------------------------
