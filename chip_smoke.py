@@ -153,9 +153,22 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      data coordinates).  Each line gives
      step seconds, tokens/s, model TFLOP/s, resident bytes a coordinate
      against the specs, collective bytes a step by kind, the replicated
-     dims and peak memory.  None of the RPQ kernels may launch.
+     dims and peak memory.  None of the RPQ kernels may launch;
+ 13. the dry run (``repro_torch.launch.dryrun``): (a) ``make_bfs`` at
+     the ring-rpq config's own size (V = 2**25, E = 2**29 drawn on the
+     card, hub objects, Zipf predicates; L = 1,024; a 15-position regex
+     compiled by the port's ``glushkov``; 65,536 start nodes; 8
+     supersteps) on a mesh of 4 x the card: the frontier live at every
+     superstep, the planes bit for bit the one-device
+     ``dense.bfs_rows``'s on the same edges, ``packed_superstep`` once a
+     shard a superstep, and the bytes held and gathered equal to the dry
+     run's record of that mesh (``dryrun.lower_rpq``); (b) the dry run
+     of phase 12 (a)'s training on the meta device: its resident bytes
+     and forward collective bytes by kind equal what phase 12 (a)
+     measured; (c) the ring-rpq and smollm-135m ``train_4k`` cells on the
+     16 x 16 production mesh, with their trace seconds.
 
-Each of phases 2-12 sets the launch counts to 0 just before its path (in
+Each of phases 2-13 sets the launch counts to 0 just before its path (in
 phase 9, before each run) and prints them just after.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -359,54 +372,13 @@ def cuda_launches_per_call(fn, runs: int = 10) -> float:
 
 def edge_pass_bound(f, v, Bp, bwd, subj, pred, obj, gathered=None):
     """What one edge pass (the kernel before the grouped layout: a thread
-    an edge) of R rows ([R, V, W] state, [R, L, W] and [R, S, W] tables)
-    must move, from these inputs: every edge's obj once and every
-    frontier word (4*E + 4*R*V*W); the pred of each edge whose frontier
-    word below S is non-zero in some row and the subj of each edge whose
-    transition is non-zero in some row (4 each); at each word a row's
-    transition reaches, v read (4) and, where the mask leaves bits, nxt
-    written (4); at each non-zero frontier word v read and written (8);
-    spare written (4*R*V*W); the tables once.
-    Operations: W ORs per set bit of X below S, over the rows.  A
-    shard's superstep (``gathered`` [R, V_pad, W], the frontier gathered
-    over the mesh; the state and ``subj`` local) also reads the gathered
-    words at its edges' distinct objects (4*R*W each), and its state
-    terms are over its own V rows."""
-    import torch
-    from repro_torch.kernels.ref import nfa_step_ref, segment_or_ref
-    E = obj.shape[0]
-    (R, V, W), S, L = f.shape, bwd.shape[1], Bp.shape[1]
-    g = f if gathered is None else gathered
-    remote = 0 if gathered is None else \
-        4 * R * W * int(torch.unique(obj).numel())
-    live_f = torch.zeros(E, dtype=torch.bool, device=f.device)
-    live_y = torch.zeros_like(live_f)
-    targets = written = set_bits = 0
-    for r in range(R):
-        fo = g[r].index_select(0, obj)
-        live_f |= (fo[:, :(S + 31) // 32] != 0).any(1)
-        X = fo & Bp[r].index_select(0, pred)
-        Y = nfa_step_ref(X, bwd[r])
-        live_y |= (Y != 0).any(1)
-        reach = segment_or_ref(Y, subj, V)
-        targets += int((reach != 0).sum())
-        written += int(((reach & ~(v[r] | f[r])) != 0).sum())
-        set_bits += int(_set_bits_below(X, S))
-    n_bytes = (4 * E + 8 * R * V * W + remote
-               + 4 * (int(live_f.sum()) + int(live_y.sum()) + targets
-                      + written)
-               + 8 * int((f != 0).sum()) + 4 * R * (L + S) * W)
-    return bound(n_bytes, set_bits * W, INT32_OPS_PER_S)
-
-
-def _set_bits_below(X, S: int):
-    """Set bits of [N, W] int32 words X at positions below S."""
-    import torch
-    from repro_torch.kernels.ref import popcount, widen
-    x = widen(X[:, :(S + 31) // 32])
-    if S % 32:
-        x[:, -1] &= (1 << (S % 32)) - 1
-    return popcount(x).sum() if x.numel() else torch.zeros(())
+    an edge) of R rows must move and do on these inputs, over the card's
+    rates: ``kernels/packed_superstep.py`` ``edge_pass_cost``, the byte
+    model the dry run's all-live case shares."""
+    from repro_torch.kernels.packed_superstep import edge_pass_cost
+    n_bytes, n_ops = edge_pass_cost(f, v, Bp, bwd, subj, pred, obj,
+                                    gathered=gathered)
+    return bound(n_bytes, n_ops, INT32_OPS_PER_S)
 
 
 def scan_bound(vals):
@@ -693,7 +665,7 @@ def superstep_bounds(args, gathered=None) -> dict:
         reach = segment_or_ref(Y, lay.subj[on], V)
         targets += int((reach != 0).sum())
         written += int(((reach & ~(v[r] | f[r])) != 0).sum())
-        set_bits += int(_set_bits_below(X, S))
+        set_bits += ksup.set_bits_below(X, S)
     offsets = torch.zeros(Vg + 1, dtype=torch.bool, device=f.device)
     offsets[:-1] |= any_live
     offsets[1:] |= any_live
@@ -3243,22 +3215,12 @@ def _compare_grads(g1: dict, gm: dict) -> dict:
 
 def _resident(state) -> dict:
     """Bytes of params + moments each coordinate holds, and what the
-    sanitized specs give for one coordinate (the same for all)."""
+    sanitized specs give for one coordinate (the same for all):
+    ``sharding.resident_bytes``, the count the dry run's resident bytes
+    are held to."""
     from repro_torch import sharding as shd
-    held: dict = {}
-    want = 0
-    for tree in (state["params"], state["opt"]["mu"], state["opt"]["nu"]):
-        for sh in tree.values():
-            for c, t in sh.parts.items():
-                held[c] = held.get(c, 0) + t.numel() * t.element_size()
-            want += math.prod(shd.local_shape(sh.shape, sh.spec,
-                                              sh.mesh)) * 4
-    logical = sum(math.prod(sh.shape) * 4 for tree in (
-        state["params"], state["opt"]["mu"], state["opt"]["nu"])
-        for sh in tree.values())
-    return {"per_coordinate": [held[c] for c in sorted(held)],
-            "from_specs": want, "logical_total": logical,
-            "share_of_total": want / logical}
+    return shd.resident_bytes(state["params"], state["opt"]["mu"],
+                              state["opt"]["nu"])
 
 
 def _perturbed(state, seed: int = 11) -> None:
@@ -3782,6 +3744,9 @@ def phase_lm_mesh(smi: str) -> None:
                                                 MESH_TRAIN["steps"])
     del state
     _free()
+    MESH_MEASURED.update(
+        resident_from_specs=train["resident_bytes"]["from_specs"],
+        collective_bytes_a_step=train["collective_bytes_a_step"])
     emit_at({"phase": "lm_mesh_train", "device": smi, **train,
              "gates": MESH_GATES})
     cut = replace(cfg, num_layers=MESH_RESUME["layers"])
@@ -3870,6 +3835,335 @@ def phase_lm_mesh(smi: str) -> None:
         fail(f"the LM mesh launched an RPQ kernel: {launches}")
 
 
+# -- phase 13: the dry run, and make_bfs at the ring-rpq config's size ---------
+BFS_SHARDS = 4
+BFS_SEED = 29
+BFS_START_NODES = 65_536
+# 15 positions (S = 16) over the most frequent predicates (0-8; ^p its
+# inverse): the ring-rpq config's automaton size
+BFS_REGEX = "(0|^0|1)+/(2|^2|3|^1)*/(4|^3|5)*/(6|7|^4|8|^5)*"
+# phase 12 (a)'s resident bytes and collective bytes a step, which 13 (b)
+# holds the dry run to
+MESH_MEASURED: dict = {}
+DRY_CELLS = (("ring-rpq", "train_4k"), ("smollm-135m", "train_4k"))
+
+
+def rpq_graph(c, shards: int, seed: int, device):
+    """The ring-rpq config's graph on the card, drawn from a seeded
+    ``torch.Generator``: ``[shards, E / shards]`` int32 subj (uniform in
+    each shard's range, owner-local), pred and obj.  Objects carry hubs
+    as ``scale_free_graph`` draws nodes (weight ``1 / rank ** 0.8``, node
+    0 the largest); predicates are Zipf-skewed as Wikidata's are
+    (weight ``1 / rank`` over the L / 2 predicates, a few holding most
+    triples), each edge forward (p) or inverse (p + L / 2) at random."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    V, E, L = c.num_nodes, c.num_edges, c.num_labels
+    P, Vl, El = L // 2, V // shards, E // shards
+
+    def cdf(n, power):
+        w = torch.arange(1, n + 1, dtype=torch.float64,
+                         device=device).pow(-power)
+        out = torch.cumsum(w, 0)
+        return out / out[-1]
+
+    nodes, preds = cdf(V, 0.8), cdf(P, 1.0)
+    subj, pred, obj = (torch.empty((shards, El), dtype=torch.int32,
+                                   device=device) for _ in range(3))
+    for k in range(shards):
+        subj[k] = torch.randint(0, Vl, (El,), generator=gen, device=device,
+                                dtype=torch.int32)
+        u = torch.rand(El, generator=gen, device=device, dtype=torch.float64)
+        obj[k] = torch.searchsorted(nodes, u).clamp_(max=V - 1)
+        u = torch.rand(El, generator=gen, device=device, dtype=torch.float64)
+        p = torch.searchsorted(preds, u).clamp_(max=P - 1)
+        p += P * torch.randint(0, 2, (El,), generator=gen, device=device)
+        pred[k] = p
+        del u, p
+    return subj, pred, obj
+
+
+def rpq_tables(c, device):
+    """B [L+1, S] and PRED [S, S] int8 planes and the start row [S] of
+    ``BFS_REGEX``, compiled by the port's ``regex``/``glushkov`` (the
+    dense engine's plane tables, unpacked)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dense as pdense
+    from repro_torch.core import glushkov
+    from repro_torch.kernels import ops
+    P = c.num_labels // 2
+    g = glushkov.build(BFS_REGEX, lambda lit: int(lit.name) +
+                       (P if lit.inverse else 0))
+    S = g.m + 1
+    if S != c.nfa_states:
+        fail(f"{BFS_REGEX} has {S} states, the config {c.nfa_states}")
+    Bw, Pw = pdense._plane_tables(g, c.num_labels)
+
+    def planes(words):
+        return torch.from_numpy(ops.unpack_bits(words, S).astype(np.int8)
+                                ).to(device)
+
+    return planes(Bw), planes(Pw), planes(pdense._start_row(g))
+
+
+def _held_bytes(bfs) -> dict:
+    """What the mesh's BFS holds on the card, from its own tensors."""
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    shards = sum(nb(*r.bufs, r.v, r.edges.grouped.offsets,
+                    r.edges.grouped.subj, r.edges.grouped.pred,
+                    r.scratch.work, r.scratch.counters)
+                 for r in bfs.replicas)
+    once = sum(nb(g) for g in bfs.gathered.values()) + \
+        sum(nb(*t) for t in bfs.tables.values())
+    return {"shards": shards, "gathered_and_tables": once,
+            "total": shards + once}
+
+
+def bfs_heaviest_superstep(run, planes, errs: dict) -> dict:
+    """``make_bfs`` run again on the same inputs with a recorder
+    (:func:`_recorder`) on ``ops.packed_superstep`` that keeps the shard
+    launch with the most non-zero transition inputs, as phases 5, 7 and
+    8 keep theirs; that launch held to its plain version on the card and
+    timed (:func:`superstep_check_and_time`, over the gathered
+    frontier).  The rerun's launches are no part of the main path's
+    count.  Returns the check, the launch's shape and whether the rerun
+    gave the same planes as ``planes`` (the main path's)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    capture: dict = {}
+    recording, seen = _recorder(
+        capture, "bfs_superstep",
+        lambda: [r.edges for r in run.last.replicas],
+        lambda f, gathered: gathered is not None)
+    original = kops.packed_superstep
+    kops.packed_superstep = recording
+    try:
+        again = run(*planes[2:])
+    finally:
+        kops.packed_superstep = original
+    same = all(bool(torch.equal(a, b)) for a, b in zip(again, planes[:2]))
+    args, gathered = capture["bfs_superstep"]
+    shard = next(r.k for r in run.last.replicas if r.edges is args[8])
+    run.last = None
+    del again
+    _free()
+    shape = {"shard": shard, "superstep": int(args[5]),
+             "launches_recorded": seen[0],
+             "transition_words": capture["bfs_superstep_live"],
+             "E_local": int(args[8].subj.shape[0]),
+             "V_local": int(args[0].shape[1]),
+             "V_pad": int(gathered.shape[1]), "S": int(args[7].shape[1]),
+             "W": int(gathered.shape[2]), "rerun_equal": same}
+    check = superstep_check_and_time(
+        errs, args, "the ring-rpq BFS's heaviest shard superstep",
+        gathered=gathered)
+    return {**shape, **check}
+
+
+def bfs_at_config(smi: str, errs: dict) -> dict:
+    """13 (a): ``make_bfs`` at the ring-rpq config's own size on a mesh
+    of 4 x the card, against the one-device ``dense.bfs_rows`` on the
+    same edges; its heaviest shard superstep against the kernel's plain
+    version (:func:`bfs_heaviest_superstep`); and its bytes against the
+    dry run's record of that mesh (``dryrun.lower_rpq``): held at most
+    the record's worst case (every edge kept, the most worklist tiles),
+    exactly its formula given the run's own tile and edge counts, and
+    gathered exactly (no data in it)."""
+    import torch
+    from repro_torch.configs.ring_rpq import CONFIG as c
+    from repro_torch.core import dense as pdense
+    from repro_torch.core.distributed import Mesh, make_bfs
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch import dryrun
+    dev = torch.device(LM_DEVICE)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    clock = {}
+    t0 = time.perf_counter()
+    subj, pred, obj = rpq_graph(c, BFS_SHARDS, BFS_SEED, dev)
+    B, PRED, start_row = rpq_tables(c, dev)
+    S, V = c.nfa_states, c.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(BFS_SEED + 1)
+    starts = torch.randperm(V, generator=gen, device=dev)[:BFS_START_NODES]
+    frontier = torch.zeros((V, S), dtype=torch.int8, device=dev)
+    frontier[starts] = start_row
+    visited = frontier.clone()
+    torch.cuda.synchronize()
+    clock["graph_s"] = time.perf_counter() - t0
+    mesh = Mesh([dev] * BFS_SHARDS, ("data",))
+    run = make_bfs(mesh, ("data",), S, c.supersteps)
+    steps = []
+
+    def on_step(n, bfs):
+        torch.cuda.synchronize()
+        live = sum(int((w != 0).sum()) for w in bfs.frontier_words(n))
+        steps.append({"superstep": n + 1, "live_share": live / V,
+                      "at_s": time.perf_counter() - t_run})
+
+    reset_launch_counts()
+    t_run = time.perf_counter()
+    f_mesh, v_mesh = run(frontier, visited, subj, pred, obj, B, PRED,
+                         on_step=on_step)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    clock["make_bfs_s"] = time.perf_counter() - t_run
+    bfs = run.last
+    first = steps[0]["at_s"]
+    per_step = [b["at_s"] - a["at_s"] for a, b in zip(steps, steps[1:])]
+    held = _held_bytes(bfs)
+    devices = len(bfs.devices)
+    # the sweep's record of this mesh (a device a shard), its worst case
+    # on this mesh's one card, and its formula at the run's own counts
+    sweep = dryrun.lower_rpq(mesh)
+    worst = dryrun.lower_rpq(mesh, gather_devices=devices)
+    formula = dryrun.lower_rpq(
+        mesh, tiles=[r.edges.grouped.tiles for r in bfs.replicas],
+        edges_kept=[int(r.edges.grouped.subj.numel()) for r in bfs.replicas],
+        gather_devices=devices)
+    predicted = {"held_at_most": worst["port_held_bytes_all_shards"],
+                 "held_given_run_counts":
+                     formula["port_held_bytes_all_shards"],
+                 "gathered": c.supersteps * worst[
+                     "gather_bytes_per_superstep"]["port_all_devices"]}
+    gathered = bfs.gather_bytes
+    run.last = bfs = None
+    _free()
+    t0 = time.perf_counter()
+    heaviest = bfs_heaviest_superstep(
+        run, (f_mesh, v_mesh, frontier, visited, subj, pred, obj, B, PRED),
+        errs)
+    clock["heaviest_superstep_s"] = time.perf_counter() - t0
+    _free()
+    # the one-device BFS on the same edges
+    t0 = time.perf_counter()
+    Vl = V // BFS_SHARDS
+    offs = (torch.arange(BFS_SHARDS, device=dev, dtype=torch.int32)
+            * Vl)[:, None]
+    edges = pdense.Edges.build((subj + offs).reshape(-1), pred.reshape(-1),
+                               obj.reshape(-1), V, c.num_labels)
+    clock["one_device_layout_s"] = time.perf_counter() - t0
+    words = ops.planes_to_words(frontier)[None]
+    vis, fr, it = pdense.bfs_rows(
+        edges, ops.planes_to_words(B)[None], ops.planes_to_words(PRED)[None],
+        words, c.supersteps, visited=words.clone())
+    torch.cuda.synchronize()
+    clock["one_device_bfs_s"] = time.perf_counter() - t0
+    same = bool(torch.equal(ops.words_to_planes(vis[0], S), v_mesh)) and \
+        bool(torch.equal(ops.words_to_planes(fr[0], S), f_mesh))
+    edge_bytes = 3 * subj.numel() * subj.element_size()
+    out = {
+        "phase": "dry_run_bfs", "device": smi,
+        "config": {"num_nodes": V, "num_edges": c.num_edges,
+                   "num_labels": c.num_labels, "nfa_states": S,
+                   "supersteps": c.supersteps, "shards": BFS_SHARDS,
+                   "start_nodes": BFS_START_NODES, "regex": BFS_REGEX,
+                   "seed": BFS_SEED},
+        "supersteps": steps, "first_superstep_s": first,
+        "seconds_a_superstep": per_step,
+        "one_device_supersteps": it, "equal_to_one_device": same,
+        "kernel_launches": launches,
+        "heaviest_superstep": heaviest,
+        "edge_array_bytes": edge_bytes,
+        "plane_bytes": 2 * frontier.numel(),
+        "held_bytes": held, "gathered_bytes": gathered,
+        "dry_run": {"held_bytes_at_most": predicted["held_at_most"],
+                    "held_bytes_given_run_counts":
+                        predicted["held_given_run_counts"],
+                    "gathered_bytes": predicted["gathered"],
+                    "sweep_record_held_bytes":
+                        sweep["port_held_bytes_all_shards"],
+                    "reference_argument_bytes_per_device":
+                        sweep["reference_argument_bytes_per_device"],
+                    "kernel_bytes_per_superstep_all_live":
+                        sweep["kernel_bytes_per_superstep_all_live"]},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "seconds_by_part": clock}
+    del edges, vis, fr, words, subj, pred, obj
+    _free()
+    if not same:
+        fail(f"make_bfs on the mesh differs from one device: {out}")
+    if not heaviest["rerun_equal"]:
+        fail(f"make_bfs gave other planes when run again: {out}")
+    if not all(s["live_share"] > 0 for s in steps) or \
+            len(steps) != c.supersteps:
+        fail(f"the ring-rpq BFS's frontier emptied: {steps}")
+    if launches["packed_superstep"] != BFS_SHARDS * c.supersteps or \
+            launches["nfa_step"] or launches["segment_or"]:
+        fail(f"make_bfs launched {launches}")
+    if held["total"] > predicted["held_at_most"] or \
+            held["total"] != predicted["held_given_run_counts"] or \
+            gathered != predicted["gathered"]:
+        fail(f"the dry run's ring-rpq bytes miss the card's: {out}")
+    return out
+
+
+def dry_run_vs_mesh(smi: str) -> dict:
+    """13 (b): the dry run of phase 12 (a)'s training (its arch, mesh
+    shape and B, T) on the meta device against what phase 12 (a)
+    measured: resident bytes from the specs, and the forward collective
+    bytes of a step by kind."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=MESH_SHAPE["model"],
+                          shards=MESH_SHAPE["shards"], device="meta")
+    shape = ShapeSpec("phase_12a", MESH_TRAIN["seq"], MESH_TRAIN["batch"],
+                      "train")
+    t0 = time.perf_counter()
+    rec = dryrun.analyse(dryrun.trace_cell(MESH_TRAIN["arch"], shape, mesh),
+                         mesh)
+    res = dryrun.resident(MESH_TRAIN["arch"], shape, mesh)
+    got = {"resident_from_specs": res["params"] + res["opt_moments"],
+           "collective_bytes_a_step":
+               rec["collectives"]["forward_bytes_all_coordinates"]}
+    out = {"phase": "dry_run_vs_mesh", "device": smi,
+           "arch": MESH_TRAIN["arch"], "mesh": mesh.shape,
+           "batch": shape.global_batch, "seq": shape.seq_len,
+           "method": rec["method"], "trace_seconds": rec["trace_seconds"],
+           "seconds": time.perf_counter() - t0, "dry_run": got,
+           "measured": dict(MESH_MEASURED),
+           "saved_bytes_per_device": rec["saved_bytes_per_device"],
+           "flops_per_device": rec["flops_per_device"]}
+    if got != MESH_MEASURED:
+        fail(f"the dry run misses phase 12 (a)'s bytes: {out}")
+    return out
+
+
+def phase_dry_run(smi: str, errs: dict, capture: dict) -> dict:
+    """Phase 13: (a) ``make_bfs`` at the ring-rpq config's size (V =
+    2**25, E = 2**29, L = 1,024, S = 16, 8 supersteps) on a mesh of 4 x
+    the card, equal to one device, its bytes equal to the dry run's; (b)
+    the dry run against phase 12 (a); (c) two production cells of the
+    dry run (16 x 16 on the meta device), with their trace seconds.
+    (a)'s heaviest shard superstep goes to ``capture["bfs_superstep"]``
+    for the kernels line.  Returns the kernel launches of (a)."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    print(smi, flush=True)
+    a = bfs_at_config(smi, errs)
+    capture["bfs_superstep"] = a["heaviest_superstep"]
+    emit({**a, "at_s": time.perf_counter() - t_phase})
+    emit({**dry_run_vs_mesh(smi), "at_s": time.perf_counter() - t_phase})
+    cells = {}
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape in DRY_CELLS:
+            rec = dryrun.run_cell(arch, shape, False, d, verbose=False)
+            if not rec.get("ok"):
+                fail(f"dry run {arch} {shape}: {rec}")
+            cells[arch] = {k: rec[k] for k in (
+                "num_devices", "trace_seconds", "resident_bytes_per_device",
+                "saved_bytes_per_device", "fits_h100", "est", "method")}
+    emit({"phase": "dry_run_cells", "device": smi, "mesh": "16x16 (meta)",
+          "cells": cells, "at_s": time.perf_counter() - t_phase})
+    emit({"phase": "dry_run", "kernel_launches": a["kernel_launches"],
+          "seconds": time.perf_counter() - t_phase})
+    return a["kernel_launches"]
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -3946,7 +4240,9 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     shard launch (R = 16 rows, the shard's local state and edges, the
     gathered frontier; ``record_shard_launch``), each with its launches
     on the mesh path.  ``dense``: ``packed_superstep`` at phase 7's
-    heaviest real R = 16 launch (``record_dense_launch``).  Each
+    heaviest real R = 16 launch (``record_dense_launch``).  ``bfs``:
+    ``packed_superstep`` at phase 13 (a)'s heaviest shard superstep (the
+    ring-rpq size, R = 1; :func:`bfs_heaviest_superstep`).  Each
     ``packed_superstep`` point has its bound over the grouped inputs, the
     edge pass's bound and the bytes its design moves beside it
     (:func:`superstep_bounds`) and, with ``--parent``, the parent's time
@@ -4100,7 +4396,9 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
             "shard": {"launches": superstep_paths["mesh"], **shard_shape,
                       **superstep_check_and_time(
                           errs, shard_args, "the mesh's heaviest shard "
-                          "launch", gathered=gathered)}}}
+                          "launch", gathered=gathered)},
+            "bfs": {"launches": superstep_paths["bfs"],
+                    **capture["bfs_superstep"]}}}
     out = []
     for name, (measure, (b, by), shape) in timed.items():
         times = measure()
@@ -4186,13 +4484,15 @@ def main() -> int:
     phase_lm(smi_line())
     phase_families(smi_line())
     phase_lm_mesh(smi_line())
+    bfs = phase_dry_run(smi_line(), errs, capture)
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],
              "dense": dense["kernel_launches"]["packed_superstep"],
              "mesh": mesh["kernel_launches"]["packed_superstep"],
              "serving_dense": served["dense"]["packed_superstep"],
-             "serving_mesh": served["mesh"]["packed_superstep"]}
+             "serving_mesh": served["mesh"]["packed_superstep"],
+             "bfs": bfs["packed_superstep"]}
     nfa_paths = {"ring": report["kernel_launches"],
                  "mesh": mesh["kernel_launches"]["nfa_step"],
                  "serving_ring": served["ring"]["nfa_step"]}

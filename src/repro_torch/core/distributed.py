@@ -18,6 +18,12 @@ mesh=...)`` or ``shards=N``:
     gather IS the mask-OR);
   * :func:`shard_superstep` — one superstep of the dense engine on every
     shard, on ``ops.packed_superstep`` over the gathered frontier;
+  * :func:`make_superstep` / :func:`make_superstep_batched` /
+    :func:`make_bfs` — the JAX package's sharded supersteps and its
+    fixed-trip-count BFS (the one the dry run lowers), with its int8
+    planes in and out: the planes are packed to words once, every
+    superstep is :func:`shard_superstep`, and the words are unpacked
+    once at the end;
   * :class:`ShardedDenseExec` — the dense engine's sharded executor:
     ``dense.superstep_loop`` (the unsharded loop, deadline-checked between
     chunks) over those supersteps and per-shard edges, used by ``_run_from`` / ``_run_from_batched`` /
@@ -53,7 +59,7 @@ computes exactly the same monotone visited fixpoint, only partitioned.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -299,6 +305,207 @@ def shard_superstep(replicas: Sequence[_Replica],
         for r in peers:
             r.bufs[(n + 1) % 3].copy_(nxt)
     return moved
+
+
+def _as_tensor(a, device=None) -> torch.Tensor:
+    """A tensor (kept where it is unless ``device`` is given), or numpy /
+    any array the ``__array__`` protocol reads, on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    return t if device is None else t.to(device)
+
+
+class _PlaneBFS:
+    """The JAX package's sharded BFS state over a mesh, as the port runs
+    it: R rows of int8 planes packed to int32 words once, one
+    :class:`_Replica` a (data shard, model shard) with its block of the
+    shard's edges grouped over the gathered frontier's rows, one
+    gathered buffer and one flag a device, and the tables a device.
+    ``run(k)`` runs ``k`` supersteps through :func:`shard_superstep`;
+    ``planes()`` unpacks the JAX package's ``(frontier, visited)``.
+
+    The JAX package's visited holds its frontier; the kernel's trails it
+    by a superstep (it ORs the frontier in first), so its ``(f, v)`` is
+    the reference's ``(f, v | f)``.  That is exact when the starting
+    frontier lies within the starting visited, as every engine of both
+    packages starts a BFS (visited = the start frontier), and is
+    checked."""
+
+    def __init__(self, mesh: Mesh, data_axes: Tuple[str, ...],
+                 model_axis: Optional[str], frontier, visited, subj, pred,
+                 obj, B, PRED):
+        self.devs = shard_devices(mesh, data_axes, model_axis)
+        home = self.devs[0][0]
+        f = _as_tensor(frontier)
+        self.out_device = f.device if isinstance(frontier, torch.Tensor) \
+            else home
+        f, v = f.to(home), _as_tensor(visited, home)
+        if f.shape != v.shape or f.dim() != 3:
+            raise ValueError(f"frontier {tuple(f.shape)} and visited "
+                             f"{tuple(v.shape)} must be equal [R, V_pad, S]")
+        R, Vp, S = f.shape
+        self.S = S
+        n, M = len(self.devs), len(self.devs[0])
+        if Vp % n:
+            raise ValueError(f"{Vp} rows do not split over {n} shards")
+        if bool(((f != 0) & (v == 0)).any()):
+            raise ValueError("the frontier must lie within visited (the "
+                             "JAX package's engines start a BFS with "
+                             "visited = frontier)")
+        Bt, Pt = _as_tensor(B, home), _as_tensor(PRED, home)
+        if Bt.dim() != 3 or Pt.shape != (R, S, S) or Bt.shape[0] != R or \
+                Bt.shape[2] != S:
+            raise ValueError(f"tables {tuple(Bt.shape)}, {tuple(Pt.shape)} "
+                             f"do not fit planes of {S} states, {R} rows")
+        L = Bt.shape[1] - 1            # row L: the inert label
+        if bool(Bt[:, L].any()):
+            raise ValueError("the inert label's row B[L] must be all zero "
+                             "(padding edges carry it)")
+        self.Vl = Vp // n
+        words = ops.planes_to_words(f)
+        seen = ops.planes_to_words(v)
+        del f, v
+        # bwd row s is the packed word of PRED[s, :]: Y = OR of the rows
+        # X selects, the reference's X @ PRED > 0
+        Bp, bwd = ops.planes_to_words(Bt), ops.planes_to_words(Pt)
+        edges = [_as_tensor(a) for a in (subj, pred, obj)]
+        if any(e.dim() != 2 or e.shape != edges[0].shape for e in edges) \
+                or edges[0].shape[0] != n:
+            raise ValueError(f"edge arrays must be [{n}, E_max], got "
+                             f"{[tuple(e.shape) for e in edges]}")
+        if edges[0].shape[1] % M:
+            raise ValueError(f"E_max {edges[0].shape[1]} does not split "
+                             f"over {M} model shards")
+        Em = edges[0].shape[1] // M
+        self.devices = list(dict.fromkeys(d for row in self.devs
+                                          for d in row))
+        self.tables = {d: (Bp.to(d).contiguous(), bwd.to(d).contiguous())
+                       for d in self.devices}
+        self.replicas = []
+        for k, row in enumerate(self.devs):
+            sl = slice(k * self.Vl, (k + 1) * self.Vl)
+            for j, dev in enumerate(row):
+                block = [e[k, j * Em:(j + 1) * Em].to(dev, torch.int32)
+                         .contiguous() for e in edges]
+                self.replicas.append(_Replica(
+                    k, j, dev, words[:, sl],
+                    Edges.build(*block, Vp, L), seen[:, sl]))
+        self.gathered = {d: torch.empty((R, Vp, words.shape[2]),
+                                        dtype=torch.int32, device=d)
+                         for d in self.devices}
+        self.flags = {d: torch.zeros(1, dtype=torch.int32, device=d)
+                      for d in self.devices}
+        self.it = 0                    # supersteps queued so far
+        self.gather_bytes = 0
+
+    def run(self, k: int, on_step: Optional[Callable] = None) -> None:
+        """Queue ``k`` supersteps (no flag read); ``on_step(n, self)``
+        after superstep ``n``, if given."""
+        for n in range(self.it, self.it + k):
+            self.gather_bytes += shard_superstep(
+                self.replicas, self.gathered, self.flags, self.tables, n,
+                self.Vl)
+            self.it = n + 1
+            if on_step is not None:
+                on_step(n, self)
+
+    def _buffer_after(self, n: int) -> int:
+        """The rotation's buffer holding the frontier after superstep
+        ``n`` (-1: the start).  The flag holds the stamp F of the last
+        superstep that found a word; superstep F ran and found nothing,
+        and the ones after it changed nothing, not even the spare
+        buffer, so a later buffer may still hold an older frontier: after
+        superstep ``n >= F`` the frontier is superstep F's output (zero),
+        as ``dense.superstep_loop`` counts.  Reads the flags (a sync)."""
+        last = max(int(f.item()) for f in self.flags.values())
+        return (min(n, last) + 1) % 3
+
+    def frontier_words(self, n: int) -> List[torch.Tensor]:
+        """Each data shard's frontier words after superstep ``n``."""
+        b = self._buffer_after(n)
+        return [r.bufs[b] for r in self.replicas if r.j == 0]
+
+    def planes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(frontier, visited)`` int8 [R, V_pad, S] on the output
+        device, after the supersteps queued so far."""
+        dev = self.out_device
+        f = torch.cat([w.to(dev) for w in self.frontier_words(self.it - 1)],
+                      dim=1)
+        v = torch.cat([r.v.to(dev) for r in self.replicas if r.j == 0],
+                      dim=1) | f
+        return (ops.words_to_planes(f, self.S),
+                ops.words_to_planes(v, self.S))
+
+
+def make_superstep(mesh: Mesh, data_axes: Tuple[str, ...], S: int,
+                   model_axis: Optional[str] = None) -> Callable:
+    """The JAX package's sharded superstep (one shared plane set):
+    ``step(frontier, visited, subj, pred, obj, B, PRED) -> (frontier,
+    visited)``.  frontier/visited int8 [V_pad, S], node rows split over
+    ``data_axes``; edge arrays [shards, E_max] int32 (``ShardedGraph``'s:
+    subj owner-local, padding on the inert label L), E_max split over
+    ``model_axis`` when given; B [L+1, S] and PRED [S, S] int8,
+    replicated (arrays or tensors).  Returns int8 tensors on the
+    frontier's device (the first shard's for an array).  Each call packs
+    the planes, groups each shard's edges and runs one
+    :func:`shard_superstep`; the model replicas' frontiers are ORed (the
+    JAX package's psum of 0/1 counts)."""
+    batched = make_superstep_batched(mesh, data_axes, model_axis)
+
+    def step(frontier, visited, subj, pred, obj, B, PRED):
+        f, v = batched(_as_tensor(frontier)[None], _as_tensor(visited)[None],
+                       subj, pred, obj, _as_tensor(B)[None],
+                       _as_tensor(PRED)[None])
+        if f.shape[2] != S:
+            raise ValueError(f"planes of {f.shape[2]} states, not {S}")
+        return f[0], v[0]
+
+    return step
+
+
+def make_superstep_batched(mesh: Mesh, data_axes: Tuple[str, ...],
+                           model_axis: Optional[str] = None) -> Callable:
+    """The JAX package's batched sharded superstep: row r of the leading
+    axis runs its own tables.  ``step(frontier, visited, subj, pred,
+    obj, Bstk, PREDstk)``: frontier/visited int8 [R, V_pad, S] (the node
+    axis over ``data_axes``), edges as :func:`make_superstep`'s, Bstk
+    [R, L+1, S] and PREDstk [R, S, S] replicated."""
+
+    def step(frontier, visited, subj, pred, obj, Bstk, PREDstk):
+        bfs = _PlaneBFS(mesh, tuple(data_axes), model_axis, frontier,
+                        visited, subj, pred, obj, Bstk, PREDstk)
+        bfs.run(1)
+        return bfs.planes()
+
+    return step
+
+
+def make_bfs(mesh: Mesh, data_axes: Tuple[str, ...], S: int,
+             num_steps: int) -> Callable:
+    """The JAX package's fixed-trip-count BFS (the one its dry run
+    lowers): ``run(frontier, visited, subj, pred, obj, B, PRED) ->
+    (frontier, visited)`` after exactly ``num_steps`` supersteps of
+    :func:`make_superstep` (no early exit: a superstep after convergence
+    leaves every plane as it is).  The planes are packed once, the
+    shards' edges grouped once, and the words unpacked once; the
+    supersteps read no flag between them.  ``run.last`` keeps the
+    :class:`_PlaneBFS` of the last call (its replicas, gather bytes and
+    flags); ``on_step(n, bfs)``, if given, is called after superstep
+    ``n`` (``bfs.frontier_words(n)`` are the shards' new frontiers)."""
+
+    def run(frontier, visited, subj, pred, obj, B, PRED, on_step=None):
+        bfs = _PlaneBFS(mesh, tuple(data_axes), None,
+                        _as_tensor(frontier)[None],
+                        _as_tensor(visited)[None], subj, pred, obj,
+                        _as_tensor(B)[None], _as_tensor(PRED)[None])
+        if bfs.S != S:
+            raise ValueError(f"planes of {bfs.S} states, not {S}")
+        run.last = bfs
+        bfs.run(num_steps, on_step)
+        f, v = bfs.planes()
+        return f[0], v[0]
+
+    run.last = None
+    return run
 
 
 class ShardedDenseExec:

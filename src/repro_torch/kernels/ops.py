@@ -3,8 +3,10 @@ the device resolver.
 
 A kernel entry point runs its CUDA kernel on a CUDA tensor and its
 plain PyTorch version on a CPU tensor; it never falls back from one to
-the other.  Engines name their device explicitly: ``"cuda"`` unless the
-caller asks for ``"cpu"``.
+the other, and it raises on a tensor of any other device (a ``meta``
+tensor included: no kernel has a meta implementation).  Engines name
+their device explicitly: ``"cuda"`` unless the caller asks for ``"cpu"``;
+the dry run (``launch/dryrun.py``) names ``"meta"``.
 """
 from __future__ import annotations
 
@@ -14,19 +16,22 @@ import torch
 from . import nfa_step as _nfa
 from . import packed_superstep as _sup
 from . import rank_popcount as _rank
+from . import ref as _ref
 from . import segment_or as _seg
 
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``"cuda"``.  A CUDA device without a card raises
-    :class:`RuntimeError`; there is no silent CPU fallback."""
+    :class:`RuntimeError`; there is no silent CPU fallback.  ``"meta"``
+    (shapes and dtypes, no storage: the dry run's) is taken only when it
+    is named."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the kernels' "
                 "plain PyTorch versions on the host")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -63,13 +68,39 @@ def unpack_bits(packed: np.ndarray, S: int) -> np.ndarray:
     return bits.reshape(*packed.shape[:-1], W * 32)[..., :S].astype(np.uint8)
 
 
+def planes_to_words(planes: torch.Tensor) -> torch.Tensor:
+    """0/1 planes [..., S] (any integer dtype) -> packed int32 words
+    [..., ceil(S/32)] on their device: bit i of word w is plane 32w + i
+    (:func:`pack_bits`'s layout).  One pass a plane, so the temporaries
+    stay the size of the words."""
+    S = planes.shape[-1]
+    out = torch.zeros((*planes.shape[:-1], (S + 31) // 32),
+                      dtype=torch.int64, device=planes.device)
+    for i in range(S):
+        out[..., i // 32] |= (planes[..., i] != 0).to(torch.int64) << (i % 32)
+    return _ref.narrow(out)
+
+
+def words_to_planes(words: torch.Tensor, S: int) -> torch.Tensor:
+    """Packed int32 words [..., W] -> int8 planes [..., S] on their
+    device (:func:`unpack_bits`'s layout)."""
+    wide = _ref.widen(words)
+    out = torch.empty((*words.shape[:-1], S), dtype=torch.int8,
+                      device=words.device)
+    for i in range(S):
+        out[..., i] = (wide[..., i // 32] >> (i % 32)) & 1
+    return out
+
+
 def _route(name: str, cuda, plain, t: torch.Tensor):
-    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    """The kernel for a CUDA tensor, the plain version for a CPU one; any
+    other device raises (a meta tensor has no kernel to run)."""
     if t.device.type == "cuda":
         return cuda
     if t.device.type == "cpu":
         return plain
-    raise ValueError(f"{name}: unsupported device {t.device}")
+    raise ValueError(f"{name}: no kernel runs on a {t.device.type} tensor "
+                     "(only cuda, or cpu for the plain version)")
 
 
 def nfa_step(X: torch.Tensor, bwd: torch.Tensor) -> torch.Tensor:

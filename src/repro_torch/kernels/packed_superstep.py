@@ -132,6 +132,102 @@ def new_scratch(layout: GroupedEdges, rows: int) -> SuperstepScratch:
         counters=torch.zeros(3, dtype=torch.int32, device=dev))
 
 
+# -- byte models ---------------------------------------------------------------
+
+def set_bits_below(X: torch.Tensor, S: int) -> int:
+    """Set bits of [N, W] int32 words ``X`` at positions below ``S``."""
+    from .ref import popcount, widen
+    x = widen(X[:, :(S + 31) // 32])
+    if S % 32:
+        x[:, -1] &= (1 << (S % 32)) - 1
+    return int(popcount(x).sum()) if x.numel() else 0
+
+
+def _edge_pass(R: int, V: int, W: int, E: int, L: int, S: int,
+               remote_objects: int, live_f: int, live_y: int, targets: int,
+               written: int, frontier_words: int, set_bits: int):
+    """The edge pass's ``(bytes, operations)`` from its counts (see
+    :func:`edge_pass_cost`)."""
+    n_bytes = (4 * E + 8 * R * V * W + 4 * R * W * remote_objects
+               + 4 * (live_f + live_y + targets + written)
+               + 8 * frontier_words + 4 * R * (L + S) * W)
+    return n_bytes, set_bits * W
+
+
+def edge_pass_cost(f, v, Bp, bwd, subj, pred, obj, gathered=None):
+    """``(bytes, operations)`` one edge pass (the kernel before the
+    grouped layout: a thread an edge) of R rows ([R, V, W] state,
+    [R, L, W] and [R, S, W] tables) must move and do, from these inputs:
+    every edge's obj once and every frontier word (4*E + 4*R*V*W); the
+    pred of each edge whose frontier word below S is non-zero in some
+    row and the subj of each edge whose transition is non-zero in some
+    row (4 each); at each word a row's transition reaches, v read (4)
+    and, where the mask leaves bits, nxt written (4); at each non-zero
+    frontier word v read and written (8); spare written (4*R*V*W); the
+    tables once.  Operations: W ORs per set bit of X below S, over the
+    rows.  A shard's superstep (``gathered`` [R, V_pad, W], the frontier
+    gathered over the mesh; the state and ``subj`` local) also reads the
+    gathered words at its edges' distinct objects (4*R*W each), and its
+    state terms are over its own V rows.  :func:`edge_pass_cost_all_live`
+    is the same formula with every count at its most."""
+    from .ref import nfa_step_ref, segment_or_ref
+    E = obj.shape[0]
+    (R, V, W), S, L = f.shape, bwd.shape[1], Bp.shape[1]
+    g = f if gathered is None else gathered
+    live_f = torch.zeros(E, dtype=torch.bool, device=f.device)
+    live_y = torch.zeros_like(live_f)
+    targets = written = set_bits = 0
+    for r in range(R):
+        fo = g[r].index_select(0, obj)
+        live_f |= (fo[:, :(S + 31) // 32] != 0).any(1)
+        X = fo & Bp[r].index_select(0, pred)
+        Y = nfa_step_ref(X, bwd[r])
+        live_y |= (Y != 0).any(1)
+        reach = segment_or_ref(Y, subj, V)
+        targets += int((reach != 0).sum())
+        written += int(((reach & ~(v[r] | f[r])) != 0).sum())
+        set_bits += set_bits_below(X, S)
+    remote = 0 if gathered is None else int(torch.unique(obj).numel())
+    return _edge_pass(R, V, W, E, L, S, remote, int(live_f.sum()),
+                      int(live_y.sum()), targets, written,
+                      int((f != 0).sum()), set_bits)
+
+
+def edge_pass_cost_all_live(R: int, V: int, W: int, E: int, L: int,
+                            S: int, Vg=None, objects=None):
+    """:func:`edge_pass_cost`'s formula with every count at its most:
+    every edge live in both tests, every state word a frontier word, a
+    target and written, every state bit below S set in every X.  (A
+    frontier word with every bit below S set leaves no bit to write, so
+    no input reaches all of them at once: this is an upper bound.)
+    ``Vg`` (the gathered frontier's rows, on a mesh) adds the remote
+    reads at ``objects`` distinct objects (default ``min(E, Vg)``)."""
+    remote = 0 if Vg is None else (min(E, Vg) if objects is None
+                                   else objects)
+    words = R * V * W
+    return _edge_pass(R, V, W, E, L, S, remote, E, E, words, words, words,
+                      R * E * S)
+
+
+def working_set_bytes(R: int, V: int, W: int, Vg: int, edges: int,
+                      tiles: int, L: int, S: int) -> dict:
+    """Bytes one shard's BFS holds on its device, by part, as the mesh's
+    BFS allocates them (``core/distributed.py`` ``_Replica``,
+    ``_PlaneBFS``): the three rotating frontier buffers and the visited
+    words ([R, V, W] int32 each), the grouped edges (``Vg + 1`` offsets,
+    subj and pred of its ``edges`` kept edges), the worklist (``R *
+    tiles`` entries of two int32) and its three counters, the gathered
+    frontier ([R, Vg, W]: one a device, counted with each shard that
+    has a device of its own) and the tables."""
+    out = {"words": 4 * 4 * R * V * W,
+           "grouped_edges": 4 * (Vg + 1) + 8 * edges,
+           "scratch": 8 * R * tiles + 4 * 3,
+           "gathered": 4 * R * Vg * W,
+           "tables": 4 * R * (L + S) * W}
+    out["total"] = sum(out.values())
+    return out
+
+
 def _check(f, v, nxt, spare, flag, Bp, bwd, layout, scratch, g) -> None:
     words = (f, v, nxt, spare, Bp, bwd, g)
     edges = (layout.offsets, layout.subj, layout.pred)

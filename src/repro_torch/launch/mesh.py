@@ -1,4 +1,5 @@
-"""Host meshes for the LM, the JAX package's ``launch/mesh.py``.
+"""Meshes for the LM, the JAX package's ``launch/mesh.py``: the production
+mesh the dry run traces, and host meshes.
 
 The JAX package forces N host devices with ``XLA_FLAGS`` before JAX
 starts (its ``launch/env.py``); torch reads no such flag, and a
@@ -12,10 +13,24 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.distributed import Mesh
 from ..kernels.ops import resolve_device
+
+
+def make_production_mesh(multi_pod: bool = False, device="meta") -> Mesh:
+    """The JAX package's production mesh: ``(data 16, model 16)`` = 256
+    coordinates, or with ``multi_pod`` a leading ``pod`` axis of 2 = 512
+    (``pod`` composes with ``data`` for hierarchical data parallelism),
+    over one repeated ``device``, as ``make_host_mesh(shards=)`` builds a
+    mesh.  The default ``"meta"`` holds shapes only: the dry run
+    (``launch/dryrun.py``) traces a step on it with no allocation."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = resolve_device(device)
+    return Mesh(np.full(shape, dev, dtype=object), axes)
 
 
 def make_host_mesh(model: int = 1, shards: Optional[int] = None,

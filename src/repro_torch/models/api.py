@@ -3,7 +3,8 @@ surface for the launchers, the trainer and the server, for every family
 (dense, moe, vlm, ssm, hybrid, encdec).
 
   init_params / param_specs / shard_params / loss_fn / prefill_fn /
-  decode_fn / init_cache / cache_specs / batch_specs
+  decode_fn / init_cache / cache_specs / batch_specs, and the dry run's
+  shape-only stand-ins param_struct / batch_struct / cache_struct
 
 Parameters are a :class:`~repro_torch.models.transformer.Transformer`
 module, or an :class:`~repro_torch.models.encdec.EncDec` for the encdec
@@ -77,6 +78,47 @@ def batch_specs(cfg: ModelConfig, rules):
                 "tokens": s("batch", None), "labels": s("batch", None),
                 "mask": s("batch", None)}
     return {"tokens": s("batch", None), "labels": s("batch", None)}
+
+
+# -- shape-only stand-ins (the dry run's, on the meta device) ------------------
+
+def param_struct(cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor, keyed by name: the reference's
+    ``jax.eval_shape(init_params)``, f32 (or ``dtype``: serving casts
+    to bf16), nothing drawn and nothing allocated."""
+    model = init_params(cfg, 0, "meta")
+    return {n: (t.detach() if dtype is None else t.detach().to(dtype))
+            for n, t in model.named_parameters()}
+
+
+def batch_struct(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Meta tensors of one training or prefill batch of ``shape`` (a
+    ``configs.ShapeSpec``): the reference's ``batch_struct``, its shapes
+    and dtypes (a vlm's text fills what the patches leave of the
+    sequence, at least one token)."""
+    B, T, d = shape.global_batch, shape.seq_len, cfg.d_model
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "encdec":
+        return {"frames": meta((B, T, d), torch.bfloat16),
+                "tokens": meta((B, T)), "labels": meta((B, T))}
+    if cfg.family == "vlm":
+        Np = cfg.num_prefix_embeds
+        Tt = max(1, T - Np)
+        return {"patch_embeds": meta((B, Np, d), torch.bfloat16),
+                "tokens": meta((B, Tt)), "labels": meta((B, Np + Tt)),
+                "mask": meta((B, Np + Tt))}
+    return {"tokens": meta((B, T)), "labels": meta((B, T))}
+
+
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int = 1024):
+    """The decode cache of :func:`init_cache` as meta tensors (``len`` a
+    host int, 0): no allocation."""
+    return init_cache(cfg, batch, max_len, "meta", enc_len=enc_len)
 
 
 _LOGGED = set()

@@ -124,10 +124,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return rotate(x, *rope_tables(positions, x.shape[-1], theta, x.dtype))
 
 
-def init_dense(gen: torch.Generator, shape: Sequence[int], fan_in=None,
-               device=None, dtype=torch.float32) -> torch.Tensor:
+def new_generator(seed: int, device) -> Optional[torch.Generator]:
+    """The init's generator on ``device``; ``None`` on the meta device,
+    which holds shapes only (the dry run's parameter structs)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init_dense(gen: Optional[torch.Generator], shape: Sequence[int],
+               fan_in=None, device=None,
+               dtype=torch.float32) -> torch.Tensor:
     """Normal with std ``1/sqrt(fan_in)`` (``fan_in`` defaults to
-    ``shape[0]``), drawn from ``gen`` on ``device``."""
+    ``shape[0]``), drawn from ``gen`` on ``device``; with no generator
+    (the meta device) an empty tensor of that shape, nothing drawn."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     fan_in = fan_in if fan_in is not None else shape[0]
     std = 1.0 / np.sqrt(fan_in)
     return (torch.randn(tuple(shape), generator=gen, device=device)

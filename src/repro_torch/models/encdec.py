@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from .. import sharding as shd
-from .common import NO_SHARD, ShardCtx, init_dense
+from .common import NO_SHARD, ShardCtx, init_dense, new_generator
 from .layers import attention_specs, flash_attention, mlp_specs
 from .transformer import (_TP_DIM, MLP, Attention, Layer, _add, _bf16, _entry,
                           _heads_axes, _remat, attn_sublayer, cache_specs_kv,
@@ -53,7 +53,7 @@ class EncDec(nn.Module):
     def __init__(self, cfg, seed: int = 0, device=None):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = new_generator(seed, device)
         d = cfg.d_model
         self.embed = nn.Parameter(init_dense(gen, (cfg.vocab_padded, d), d,
                                              device))
@@ -90,12 +90,16 @@ def encode(model, frames, cfg, ctx: ShardCtx = NO_SHARD):
                                                    None), geo.mesh)
 
 
-def enc_kv(model, enc_out, cfg, ctx: ShardCtx = NO_SHARD) -> Dict[str, Any]:
+def enc_kv(model, enc_out, cfg, ctx: ShardCtx = NO_SHARD,
+           stack: bool = True) -> Dict[str, Any]:
     """Each decoder layer's cross K/V of the encoder output, stacked:
     ``[L, B, S, K, Dh]`` bf16; on a mesh,
     :class:`~repro_torch.sharding.Sharded` ``(None, "batch", None,
     "kv_heads", None)``: each coordinate's rows and the KV heads its
-    cross-attention computes."""
+    cross-attention computes.  ``stack=False`` (teacher-forced training)
+    keeps each coordinate's list of the L layers' [B, S, K, Dh] instead:
+    a layer's slice of a stacked tensor takes back a gradient of the
+    whole stack, which would make the backward's work grow as L**2."""
     flat = flat_params(model)
     eo = parts(enc_out)
     Dh = cfg.head_dim
@@ -112,6 +116,8 @@ def enc_kv(model, enc_out, cfg, ctx: ShardCtx = NO_SHARD) -> Dict[str, Any]:
                 got[n][c].append(torch.matmul(
                     xb.to(torch.bfloat16), w[c].reshape(d, K * Dh))
                     .reshape(B, S, K, Dh))
+    if not stack:
+        return got
     out = {n: {c: torch.stack(ts) for c, ts in v.items()}
            for n, v in got.items()}
     if ctx.mesh is None:
@@ -173,10 +179,13 @@ def decode(model, tokens: torch.Tensor, enc_out, cfg,
     start = int(cache["len"]) if cache is not None else 0
     rope = rope_parts(ctx, cfg, x0, None, start, T)
     x = shd.split(x0, geo.mesh, geo.seq, 1)
-    if kv is None:
-        kv = cache["enc_kv"] if cache is not None else enc_kv(model, enc_out,
-                                                              cfg, ctx)
-    kp, vp = parts(kv["k"]), parts(kv["v"])
+    if kv is None and cache is not None:
+        kv = cache["enc_kv"]
+    if kv is None:      # each coordinate's list of the layers' K/V
+        lists = enc_kv(model, enc_out, cfg, ctx, stack=False)
+        kp, vp = lists["k"], lists["v"]
+    else:
+        kp, vp = parts(kv["k"]), parts(kv["v"])
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, lw in enumerate(layer_weights(flat, "dec_layers",
                                          cfg.num_layers)):

@@ -50,7 +50,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import sharding as shd
-from .common import NO_SHARD, ShardCtx, init_dense, rms_norm, rope_tables
+from .common import (NO_SHARD, ShardCtx, init_dense, new_generator, rms_norm,
+                     rope_tables)
 from . import layers
 from .layers import (attention_block, attention_specs, mlp_block,
                      mlp_specs, moe_block, moe_block_dropless, moe_specs)
@@ -139,7 +140,7 @@ class Transformer(nn.Module):
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
                              "decoder-only family")
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = new_generator(seed, device)
         self.embed = nn.Parameter(init_dense(
             gen, (cfg.vocab_padded, cfg.d_model), cfg.d_model, device))
         self.layers = nn.ModuleList(
@@ -504,9 +505,18 @@ def attn_layer(lw, x: shd.Local, cfg, geo: Geo, rope, cache=None, i: int = 0,
     return mlp_sublayer(lw, x, cfg, geo), 0.0
 
 
-_remat = functools.partial(checkpoint, use_reentrant=False,
-                           preserve_rng_state=False,
-                           determinism_check="none")
+# called with the arguments of every rematerialised block: all that the
+# backward keeps of its forward (``launch/cost.py`` counts them as saved)
+REMAT_OBSERVERS: list = []
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: the backward keeps
+    only ``args`` and recomputes the rest."""
+    for observe in REMAT_OBSERVERS:
+        observe(args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, determinism_check="none")
 
 
 def run_attn_layer(lw, x, cfg, geo, rope, cache, i, start, prefix_len,

@@ -18,10 +18,13 @@ coordinates.  Each collective is a ``torch.cat`` or a sum of
 all-gather's is a reduce-scatter), and every sum runs in a fixed order
 (by index on the reduced axes), so a run is deterministic.  The
 collectives count the bytes a ring algorithm would move between
-coordinates (:func:`collective_bytes`).
+coordinates (:func:`collective_bytes`), and, inside
+:func:`counting_transposes`, those of the transposes autograd runs for
+them (:func:`transposed_bytes`).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -193,6 +196,17 @@ def local_shape(shape: Sequence[int], sp: Spec, mesh) -> Tuple[int, ...]:
     return tuple(d // _axes_size(mesh, e) for d, e in zip(shape, entries))
 
 
+def spec_bytes(shape: Sequence[int], dtype: torch.dtype, sp: Spec,
+               mesh) -> int:
+    """Bytes one coordinate holds of a tensor of ``shape`` and ``dtype``
+    laid out by ``sp`` (sanitized against the shape first)."""
+    sp = sanitize_spec(sp, shape, mesh)
+    n = 1
+    for d in local_shape(shape, sp, mesh):
+        n *= d
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
 def _slices(shape, sp: Spec, mesh, c: Coord):
     entries = list(sp) + [None] * (len(shape) - len(sp))
     out = []
@@ -285,10 +299,43 @@ def unshard(sh: Sharded, device_=None) -> torch.Tensor:
     return out
 
 
+def resident_bytes(*trees) -> Dict[str, object]:
+    """Bytes of the :class:`Sharded` leaves of ``trees`` (nested dicts):
+    what each coordinate holds (``per_coordinate``, row-major), what the
+    specs give one coordinate (``from_specs``: the same for all), the
+    logical total and the share of it a coordinate holds."""
+    held: Dict[Coord, int] = {}
+    want = logical = 0
+
+    def walk(node):
+        nonlocal want, logical
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+            return
+        if not isinstance(node, Sharded):
+            return
+        for c, t in node.parts.items():
+            held[c] = held.get(c, 0) + _nbytes(t)
+        want += spec_bytes(node.shape, node.dtype, node.spec, node.mesh)
+        logical += int(np.prod(node.shape, dtype=np.int64)) * \
+            next(iter(node.parts.values())).element_size()
+
+    for tree in trees:
+        walk(tree)
+    return {"per_coordinate": [held[c] for c in sorted(held)],
+            "from_specs": want, "logical_total": logical,
+            "share_of_total": want / logical if logical else 0.0}
+
+
 # -- collectives ---------------------------------------------------------------
 
 _BYTES: Dict[str, int] = {"all_gather": 0, "all_reduce": 0,
                           "reduce_scatter": 0}
+_TRANSPOSED: Dict[str, int] = dict(_BYTES)
+# collectives hook their outputs to count the transposes only inside
+# counting_transposes(): elsewhere a step pays for no hook
+_COUNT_TRANSPOSES = [False]
 
 
 def collective_bytes() -> Dict[str, int]:
@@ -297,13 +344,49 @@ def collective_bytes() -> Dict[str, int]:
     them: an all-gather or a reduce-scatter over G coordinates moves
     (G - 1) shards into each, an all-reduce 2 (G - 1) / G of the
     tensor.  Forward calls only (a rematerialised forward counts
-    again); autograd's transposes move as much again, transposed."""
+    again); autograd's transposes move as much again, transposed
+    (:func:`transposed_bytes`)."""
     return dict(_BYTES)
+
+
+def transposed_bytes() -> Dict[str, int]:
+    """Bytes of the collectives autograd runs in a backward pass for the
+    forward ones, by kind, since the last :func:`reset_collective_bytes`,
+    for the collectives called inside :func:`counting_transposes`:
+    counted when a gradient reaches a collective's output, one member at
+    a time, by the same ring model.  An all-gather's transpose is a
+    reduce-scatter of the gathered gradient, a reduce-scatter's an
+    all-gather of the slices, a sum all-reduce's an all-reduce; a max
+    all-reduce's is not counted (its gradient follows the maximum)."""
+    return dict(_TRANSPOSED)
 
 
 def reset_collective_bytes() -> None:
     for k in _BYTES:
         _BYTES[k] = 0
+        _TRANSPOSED[k] = 0
+
+
+@contextlib.contextmanager
+def counting_transposes():
+    """While the block runs, every collective hooks its outputs so that
+    :func:`transposed_bytes` counts autograd's transposes of them (the
+    backward may run inside the block or after it)."""
+    before = _COUNT_TRANSPOSES[0]
+    _COUNT_TRANSPOSES[0] = True
+    try:
+        yield
+    finally:
+        _COUNT_TRANSPOSES[0] = before
+
+
+def _on_transpose(t: torch.Tensor, kind: str, n: int) -> None:
+    """Count ``n`` bytes of ``kind`` when the backward reaches ``t``,
+    inside :func:`counting_transposes`."""
+    if _COUNT_TRANSPOSES[0] and t.requires_grad and torch.is_grad_enabled():
+        def hook(grad):
+            _TRANSPOSED[kind] += n
+        t.register_hook(hook)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -324,6 +407,7 @@ def all_gather(x: Local, mesh, axes: Sequence[str], dim: int) -> Local:
         for g in members:
             out[g] = full.to(device(mesh, g))
             _BYTES["all_gather"] += (G - 1) * _nbytes(x[g])
+            _on_transpose(out[g], "reduce_scatter", (G - 1) * _nbytes(x[g]))
     return out
 
 
@@ -351,6 +435,9 @@ def all_reduce(x: Local, mesh, axes: Sequence[str], op: str = "sum"
         for g in members:
             out[g] = total.to(device(mesh, g))
             _BYTES["all_reduce"] += 2 * (G - 1) * _nbytes(x[g]) // G
+            if op == "sum":
+                _on_transpose(out[g], "all_reduce",
+                              2 * (G - 1) * _nbytes(x[g]) // G)
     return out
 
 
@@ -369,6 +456,7 @@ def reduce_scatter(x: Local, mesh, axes: Sequence[str], dim: int) -> Local:
         for i, g in enumerate(members):
             out[g] = total.narrow(dim, i * n, n).to(device(mesh, g))
             _BYTES["reduce_scatter"] += (G - 1) * _nbytes(x[g]) // G
+            _on_transpose(out[g], "all_gather", (G - 1) * _nbytes(x[g]) // G)
     return out
 
 

@@ -115,6 +115,14 @@ def init_state(cfg: ModelConfig, seed: int = 0, device=None, mesh=None):
     return {"params": params, "opt": optim.init(params)}
 
 
+def state_struct(cfg: ModelConfig):
+    """The trainer state as meta tensors (``init_state``'s shapes and
+    dtypes, the reference's ``jax.eval_shape(init_state)``): f32 params
+    and moments keyed by name, ``step`` an int32 scalar."""
+    params = api.param_struct(cfg)
+    return {"params": params, "opt": optim.init(params)}
+
+
 def state_specs(cfg: ModelConfig, rules):
     ps = api.param_specs(cfg, rules)
     return {"params": ps, "opt": {"mu": ps, "nu": ps,
