@@ -166,10 +166,21 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      of phase 12 (a)'s training on the meta device: its resident bytes
      and forward collective bytes by kind equal what phase 12 (a)
      measured; (c) the ring-rpq and smollm-135m ``train_4k`` cells on the
-     16 x 16 production mesh, with their trace seconds.
+     16 x 16 production mesh, with their trace seconds;
+ 14. the port's static analyzer (``python -m repro_torch.analysis``),
+     all three layers, the trace layer with ``--device cuda
+     --mesh-devices 4 --no-trace-cache``: T001 launches every
+     ``KERNELS`` entry at the JAX package's shapes, T002 counts the host
+     reads of the R-row BFS and the sharded superstep on 4 x the card,
+     T005 measures that superstep's all-gather bytes against the port's
+     wire model and the JAX package's int8-plane model.  Any finding
+     the baseline does not hold fails; the line gives the new and
+     baselined findings, each check's result, T005's bytes, the B001
+     proof note and the seconds.
 
 Each of phases 2-13 sets the launch counts to 0 just before its path (in
-phase 9, before each run) and prints them just after.
+phase 9, before each run) and prints them just after; phase 14 counts
+its launches apart, as the ``audit`` point of each kernel.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
 times at its path's largest launch, the heaviest superstep for
@@ -4164,6 +4175,61 @@ def phase_dry_run(smi: str, errs: dict, capture: dict) -> dict:
     return a["kernel_launches"]
 
 
+# -- phase 14: the static analyzer --------------------------------------------
+ANALYSIS_MESH = 4        # devices of the trace layer's mesh: 4 x the card
+
+
+def phase_analysis(smi: str) -> dict:
+    """Phase 14: ``python -m repro_torch.analysis`` in this process (its
+    report captured), all three layers on this tree, the trace layer on
+    the card over a mesh of 4 x the card, every kernel it launches held
+    to its plain version there.  Fails on any finding the baseline does
+    not hold, or a report without T005's bytes.  Returns the
+    phase's kernel launches, the kernels line's ``audit`` point."""
+    import io
+    import tempfile
+    import torch
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    print(smi, flush=True)
+    report = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "analysis.json")
+        reset_launch_counts()
+        with contextlib.redirect_stdout(report):
+            rc = analysis_main([
+                "--device", "cuda", "--mesh-devices", str(ANALYSIS_MESH),
+                "--no-trace-cache", "--root", ROOT, "--json", out])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        with open(out) as f:
+            doc = json.load(f)
+    notes = doc["notes"]
+    if rc != 0 or doc["new"]:
+        fail(f"the analyzer found {len(doc['new'])} new finding(s):\n"
+             + report.getvalue())
+    trace = doc["trace"]
+    t005 = trace["t005"] if trace else None
+    if t005 is None:
+        fail("the analyzer measured no T005 bytes over the mesh:\n"
+             + report.getvalue())
+    gathered = t005["gathered_bytes_per_participant_per_superstep"]
+    return {"phase": "analysis", "device": smi,
+            "args": ["--device", "cuda", "--mesh-devices",
+                     str(ANALYSIS_MESH), "--no-trace-cache"],
+            "new": len(doc["new"]), "baselined": doc["baselined"],
+            "checks": trace["checks"],
+            "t005": {**t005,
+                     "gathered_over_port_model":
+                         gathered / t005["port_wire_model_bytes"],
+                     "gathered_over_reference_model":
+                         gathered / t005["reference_int8_plane_model_bytes"]},
+            "b001": [n for n in notes if n.startswith("B001")],
+            "notes": notes, "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -4226,7 +4292,7 @@ def segment_extras(errs: dict, capture: dict, seg_args, scan_args):
 
 
 def kernels_line(capture: dict, launches: dict, errs: dict,
-                 superstep_paths: dict, nfa_paths: dict):
+                 superstep_paths: dict, nfa_paths: dict, audit: dict):
     """One entry per kernel, timed at the largest launch of its path:
     ``nfa_step`` at phase 2's, ``packed_superstep`` at phase 5's heaviest
     superstep (the most non-zero transition words), with its phase-1 time
@@ -4257,9 +4323,10 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     ``--parent``, the parent's kernels in turns; ``segment_or`` also the
     longest runs of equal ids in its input (over all rows, and over the
     rows with a non-zero word) and the same input with its rows
-    permuted (``permuted``: ids in no order), bit for bit.
-    ``library_ms`` is null throughout: no single PyTorch call ORs or
-    popcounts packed words."""
+    permuted (``permuted``: ids in no order), bit for bit.  ``audit``:
+    each kernel's launches in phase 14's trace audit, counted apart from
+    its path's.  ``library_ms`` is null throughout: no single PyTorch
+    call ORs or popcounts packed words."""
     import torch
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import rank_popcount as krank
@@ -4408,7 +4475,11 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
             "replaces": replaces, "launches": launches.get(name, 0),
             **times, "max_abs_err": max(errs[name]),
             "bound_ms": b, "bound_by": by, "library_ms": None,
-            "shape": shape, **extra.get(name, {})})
+            "shape": shape, **extra.get(name, {}),
+            "audit": {"launches": audit.get(name, 0),
+                      "where": "phase 14's trace audit (T001 at the JAX "
+                               "package's shapes, T002/T004/T005 on 4 x "
+                               "the card)"}})
     return {"kernels": out}
 
 
@@ -4485,6 +4556,8 @@ def main() -> int:
     phase_families(smi_line())
     phase_lm_mesh(smi_line())
     bfs = phase_dry_run(smi_line(), errs, capture)
+    audit = phase_analysis(smi_line())
+    emit(audit)
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],
@@ -4503,7 +4576,8 @@ def main() -> int:
         dense["kernel_launches"]["segment_or"] +
         mesh["kernel_launches"]["segment_or"] +
         sum(v["segment_or"] for v in served.values()),
-        **rank["kernel_launches"]}, errs, paths, nfa_paths)
+        **rank["kernel_launches"]}, errs, paths, nfa_paths,
+        audit["kernel_launches"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit(kernels)                      # the line before the last
     print(json.dumps({"ok": True, "device": {

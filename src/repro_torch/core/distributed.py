@@ -468,14 +468,20 @@ def make_superstep_batched(mesh: Mesh, data_axes: Tuple[str, ...],
     axis runs its own tables.  ``step(frontier, visited, subj, pred,
     obj, Bstk, PREDstk)``: frontier/visited int8 [R, V_pad, S] (the node
     axis over ``data_axes``), edges as :func:`make_superstep`'s, Bstk
-    [R, L+1, S] and PREDstk [R, S, S] replicated."""
+    [R, L+1, S] and PREDstk [R, S, S] replicated.  A call is
+    ``step.build`` (the :class:`_PlaneBFS`: planes packed, edges
+    grouped), its ``run(1)`` and its ``planes()``."""
+
+    def build(frontier, visited, subj, pred, obj, Bstk, PREDstk):
+        return _PlaneBFS(mesh, tuple(data_axes), model_axis, frontier,
+                         visited, subj, pred, obj, Bstk, PREDstk)
 
     def step(frontier, visited, subj, pred, obj, Bstk, PREDstk):
-        bfs = _PlaneBFS(mesh, tuple(data_axes), model_axis, frontier,
-                        visited, subj, pred, obj, Bstk, PREDstk)
+        bfs = build(frontier, visited, subj, pred, obj, Bstk, PREDstk)
         bfs.run(1)
         return bfs.planes()
 
+    step.build = build
     return step
 
 

@@ -77,7 +77,7 @@ def planes_to_words(planes: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((*planes.shape[:-1], (S + 31) // 32),
                       dtype=torch.int64, device=planes.device)
     for i in range(S):
-        out[..., i // 32] |= (planes[..., i] != 0).to(torch.int64) << (i % 32)
+        out[..., i // 32] |= (planes[..., i] != 0).to(torch.int64) << (i & 31)
     return _ref.narrow(out)
 
 
@@ -88,7 +88,7 @@ def words_to_planes(words: torch.Tensor, S: int) -> torch.Tensor:
     out = torch.empty((*words.shape[:-1], S), dtype=torch.int8,
                       device=words.device)
     for i in range(S):
-        out[..., i] = (wide[..., i // 32] >> (i % 32)) & 1
+        out[..., i] = (wide[..., i // 32] >> (i & 31)) & 1
     return out
 
 

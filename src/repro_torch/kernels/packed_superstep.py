@@ -95,7 +95,8 @@ def group_by_object(subj: torch.Tensor, pred: torch.Tensor,
     s, p, o = subj[keep], pred[keep], obj[keep].to(torch.int64)
     if s.numel() > _INT32_MAX:
         raise ValueError(f"{s.numel()} edges do not fit int32 offsets")
-    key = (o << 32) | (s.to(torch.int64) & 0xFFFFFFFF)
+    # the object in the high half of an int64 sort key, the subject below
+    key = (o << 32) | (s.to(torch.int64) & 0xFFFFFFFF)  # repro: noqa B002
     order = torch.sort(key, stable=True).indices
     degree = torch.bincount(o, minlength=num_objects)
     offsets = torch.zeros(num_objects + 1, dtype=torch.int64,
@@ -138,8 +139,8 @@ def set_bits_below(X: torch.Tensor, S: int) -> int:
     """Set bits of [N, W] int32 words ``X`` at positions below ``S``."""
     from .ref import popcount, widen
     x = widen(X[:, :(S + 31) // 32])
-    if S % 32:
-        x[:, -1] &= (1 << (S % 32)) - 1
+    if S & 31:
+        x[:, -1] &= (1 << (S & 31)) - 1
     return int(popcount(x).sum()) if x.numel() else 0
 
 

@@ -42,7 +42,8 @@ def test_port_imports_leave_no_jax_or_reference_modules():
     assert "repro_torch.core.rpq" in mods and "chip_smoke" in mods
     assert "repro_torch.kernels.nfa_step" in mods
     for lm in ("repro_torch.models.transformer", "repro_torch.train.loop",
-               "repro_torch.data.pipeline", "repro_torch.launch.path_lm"):
+               "repro_torch.data.pipeline", "repro_torch.launch.path_lm",
+               "repro_torch.analysis.trace_audit"):
         assert lm in mods
     assert [m for m in mods if _forbidden(m)] == []
 

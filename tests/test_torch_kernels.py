@@ -224,6 +224,23 @@ def test_segment_or_empty_inputs_and_empty_segments():
                                   [[0], [3], [0], [4], [0]])
 
 
+@pytest.mark.parametrize("E,W,V", [(10, 1, 4), (3000, 2, 50)])
+def test_segment_or_ref_matches_reference(E, W, V):
+    """``ref.segment_or_ref``, the plain version the card's kernel is
+    held to in ``test_torch_cuda.py``, against the JAX package's own
+    oracle ``ref.segment_or_ref`` (the R003 contract: each ``KERNELS``
+    entry's ``_ref`` is named by a CPU test)."""
+    rng = np.random.default_rng(E + 5 * W + V)
+    seg = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
+    vals[rng.random(E) < 0.5] = 0
+    got = tops.tensor_to_words(tref.segment_or_ref(
+        tops.words_to_tensor(vals, "cpu"), torch.from_numpy(seg), V))
+    np.testing.assert_array_equal(got, np.asarray(jax.jit(
+        jref.segment_or_ref, static_argnums=2)(jnp.asarray(vals),
+                                               jnp.asarray(seg), V)))
+
+
 def _scan_inputs(E, W, p):
     rng = np.random.default_rng(E + W)
     vals = rng.integers(0, 2**32, (E, W), dtype=np.uint32)
@@ -490,6 +507,32 @@ def test_packed_superstep_matches_reference(edges, V, E, S, live):
     assert not got_spare.any()
     assert flag == (7 if want.any() else 6)
     assert bool(want.any()) == (live > 0)
+
+
+@pytest.mark.parametrize("edges,V,E,S,live", [
+    ("random", 40, 150, 5, 0.3), ("hub", 80, 400, 33, 1.0)])
+def test_packed_superstep_ref_matches_reference(edges, V, E, S, live):
+    """``ref.packed_superstep_ref``, the plain version the card's kernel
+    is held to in ``test_torch_cuda.py``, on the raw edge arrays against
+    the JAX package's superstep body (the R003 contract: each
+    ``KERNELS`` entry's ``_ref`` is named by a CPU test)."""
+    f, v, spare, Bp, bwd, subj, pred, obj = _superstep_inputs(
+        edges, V, E, S, live, seed=2 * V + E + S)
+    vis = v | f
+    X = jnp.asarray(f)[obj] & jnp.asarray(Bp)[pred]
+    Y = jops.nfa_step(X, jnp.asarray(bwd))
+    want = np.asarray(jops.segment_or(Y, subj, V)) & ~vis
+    t = [tops.words_to_tensor(a, "cpu")[None]
+         for a in (f, v, spare, Bp, bwd)]
+    nxt = torch.zeros_like(t[0])
+    flag = torch.full((1,), 6, dtype=torch.int32)
+    tref.packed_superstep_ref(t[0], t[1], nxt, t[2], flag, 7, t[3], t[4],
+                              *(torch.from_numpy(a) for a in (subj, pred,
+                                                              obj)))
+    np.testing.assert_array_equal(tops.tensor_to_words(nxt[0]), want)
+    np.testing.assert_array_equal(tops.tensor_to_words(t[1][0]), vis)
+    assert not t[2].any()
+    assert int(flag[0]) == (7 if want.any() else 6)
 
 
 def test_packed_superstep_wrappers_check_inputs_and_never_fall_back():
