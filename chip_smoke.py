@@ -19,7 +19,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      git-ignored ``kernels/_build/``), with the compiler's register report;
   1. every kernel against its plain PyTorch version, bit for bit, on a
      sweep of shapes up to the packed path's full size, each timed with
-     CUDA events (median of 20 runs); ``nfa_step`` in both its layouts
+     CUDA events (median of 20 runs; of fewer, at least 5, where 20
+     would take over a second); ``nfa_step`` in both its layouts
      (a thread or a warp per row), and ``packed_superstep`` at the full
      size with 1% and 100% of the frontier rows live, beside the
      unfused superstep it replaced (``unfused_ms``), and with R = 16 BFS
@@ -49,8 +50,8 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      must equal ``eval_many`` at its ticket's epoch, and the kernel must
      have launched;
   4. oracle: a smaller graph's answers on the card, from the ring engine
-     and from the packed BFS, must equal the brute-force product-graph
-     oracle;
+     and from the packed BFS, must equal the host's product-graph
+     oracle (``eval_oracle_by_label``);
   5. packed path: ``packed_bfs`` (one ``packed_superstep`` launch and
      one flag read each superstep, every edge swept) on a ``DenseGraph``
      on the card over phase 2's graph answers (a) phase 2's requests,
@@ -176,10 +177,17 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      wire model and the JAX package's int8-plane model.  Any finding
      the baseline does not hold fails; the line gives the new and
      baselined findings, each check's result, T005's bytes, the B001
-     proof note and the seconds.
+     proof note and the seconds;
+ 15. examples: ``python -m repro_torch.examples.quickstart`` and
+     ``.wikidata_style_queries`` through their ``main`` on the card at
+     the JAX package's defaults (the metro graph; 5,000 nodes, 40,000
+     edges, 16 predicates, 25 queries), every answer of the ring and
+     dense engines held to the host oracle; the line gives each
+     engine's ms per pattern beside the card's name and power limit.
 
-Each of phases 2-13 sets the launch counts to 0 just before its path (in
-phase 9, before each run) and prints them just after; phase 14 counts
+Each of phases 2-13 and 15 sets the launch counts to 0 just before its
+path (in phase 9, before each run; in phase 15, before each example) and
+prints them just after; phase 14 counts
 its launches apart, as the ``audit`` point of each kernel.
 
 Then the ``kernels`` line (each kernel's launches on its path and its
@@ -210,6 +218,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+T_SCRIPT = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -279,6 +288,11 @@ OVERRUN_CAP_S = 60.0          # a safety net: a probe that reaches it fails
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase's line also gets
+    ``script_s``, the seconds since the script began, so that the lines
+    place each phase in the run."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - T_SCRIPT}
     print(json.dumps(obj), flush=True)
 
 
@@ -286,18 +300,26 @@ def fail(msg: str) -> None:
     raise AssertionError(msg)
 
 
+TIMING_BUDGET_MS = 1_000.0   # a slow function's runs: about this in all
+TIMING_MIN_RUNS = 5
+
+
 def time_ms(fn, runs: int = 20, setup=None) -> float:
     """Median device time of ``fn`` over ``runs`` runs, CUDA events.  A
     sleep kernel queued first keeps the card busy while the host
     enqueues the events and the work, so host latency stays out.
-    ``setup``, if given, runs before each run, outside the events."""
+    ``setup``, if given, runs before each run, outside the events.  A
+    function whose first timed run shows that ``runs`` of them would
+    take over ``TIMING_BUDGET_MS`` (a plain version, tens to hundreds
+    of ms) gets that budget's worth of runs, at least
+    ``TIMING_MIN_RUNS``."""
     import torch
     if setup is not None:
         setup()
     fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(runs):
+    while len(out) < runs:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if setup is not None:
@@ -308,6 +330,9 @@ def time_ms(fn, runs: int = 20, setup=None) -> float:
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end))
+        if len(out) == 1 and out[0] * runs > TIMING_BUDGET_MS:
+            runs = max(min(runs, TIMING_MIN_RUNS),
+                       int(TIMING_BUDGET_MS / out[0]))
     return statistics.median(out)
 
 
@@ -573,11 +598,9 @@ def smi_line() -> str:
 def phase_device():
     import torch
     print(smi_line(), flush=True)
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, build_all
     t0 = time.perf_counter()
-    _build.build()
-    for name in _build.SOURCES:
-        _build.library(name)
+    build_all()
     if PARENT is not None:
         PARENT.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1333,7 +1356,9 @@ def check_packed_launches(launches: dict, path: str) -> None:
 
 def phase_oracle(device: str, num_queries: int = 8):
     """A smaller graph's answers, from the ring engine and from the packed
-    BFS, both on the card, against the brute-force oracle."""
+    BFS, both on the card, against the host oracle
+    (``eval_oracle_by_label``, held to the JAX package's brute-force
+    ``eval_oracle`` in ``tests/test_torch_core.py``)."""
     from repro_torch import kernels
     from repro_torch.core import fixtures, oracle, patterns
     from repro_torch.core.dense import DenseGraph
@@ -1358,14 +1383,8 @@ def phase_oracle(device: str, num_queries: int = 8):
     packed_launches = kernels.launch_counts()
     packed_s = time.perf_counter() - t0
     check_packed_launches(packed_launches, "the oracle phase's packed BFS")
-    every_pair = {}   # expr -> all pairs: one oracle pass per expression
     for (e, s, o), res, res_packed in zip(qs, got, packed):
-        if s is not None:
-            want = oracle.eval_oracle(graph, e, s, o)
-        else:
-            if e not in every_pair:
-                every_pair[e] = oracle.eval_oracle(graph, e)
-            want = {(a, b) for a, b in every_pair[e] if o is None or b == o}
+        want = oracle.eval_oracle_by_label(graph, e, s, o)
         if res != want:
             fail(f"answer of {(e, s, o)} differs from the oracle")
         if res_packed != want:
@@ -4230,6 +4249,156 @@ def phase_analysis(smi: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 15: the query examples ---------------------------------------------
+EXAMPLE_KERNELS = ("nfa_step", "packed_superstep")
+
+
+def record_example_launch(engine, answers, capture: dict) -> dict:
+    """Rerun the Wikidata-style queries on the example's dense engine
+    (``DenseRPQ(source_batch=8)``, its result cache cleared) with two
+    recorders (:func:`_recorder`) on ``ops.packed_superstep``: one keeps
+    the launch with the most non-zero transition inputs in
+    ``capture["examples_superstep"]``, the other the heaviest launch of
+    ``source_batch`` rows (an unbound query's batch) in
+    ``capture["examples_rows_superstep"]``, for the kernels line.  The
+    rerun's answers must equal the timed run's.  Returns the launches
+    recorded."""
+    import torch
+    from repro_torch.examples import wikidata_style_queries as wikidata
+    from repro_torch.kernels import ops as kops
+    original = kops.packed_superstep
+
+    def epochs():
+        return [e for e in (engine.dg.edges, engine._eff) if e is not None]
+
+    recording, seen = _recorder(capture, "examples_superstep", epochs,
+                                lambda f, gathered: gathered is None)
+    kops.packed_superstep = recording      # the second wraps the first
+    rows, _ = _recorder(
+        capture, "examples_rows_superstep", epochs,
+        lambda f, gathered: f.shape[0] == engine.source_batch and
+        gathered is None)
+    engine.results.clear()
+    kops.packed_superstep = rows
+    try:
+        again = [engine.eval(q[0], subject=q[1], obj=q[2],
+                             limit=wikidata.LIMIT) for q, _, _ in answers]
+        torch.cuda.synchronize()
+    finally:
+        kops.packed_superstep = original
+    if "examples_rows_superstep" not in capture:
+        fail(f"the examples' dense rerun made no launch of "
+             f"{engine.source_batch} rows")
+    if again != [dense for _, _, dense in answers]:
+        fail("the examples' dense rerun answered otherwise than its run")
+    return {"launches_recorded": seen[0],
+            "heaviest_transition_words": capture["examples_superstep_live"],
+            "heaviest_rows_transition_words":
+                capture["examples_rows_superstep_live"]}
+
+
+def phase_examples(smi: str, capture: dict) -> dict:
+    """Phase 15: ``repro_torch.examples.quickstart`` and
+    ``.wikidata_style_queries`` through their ``main`` on the card, at
+    the JAX package's defaults (nothing cut: the metro graph; 5,000
+    nodes, 40,000 edges, 16 predicates, 25 queries, ``limit=100_000``),
+    each with the counts set to 0 just before and read just after, the
+    largest ``nfa_step`` launch's inputs kept in ``capture["examples_X"]``
+    and ``["examples_bwd"]``.  Then, the timed runs over, every answer
+    of both engines is held to the host oracle, ``eval_oracle_by_label``
+    on a graph built anew (the Wikidata-style example itself compares
+    only the engines' counts), and the dense engine's queries are rerun
+    to keep its heaviest ``packed_superstep`` launches
+    (:func:`record_example_launch`).  The line gives the per-pattern ms
+    of each engine beside the card's name and power limit."""
+    import io
+
+    import torch
+    from repro_torch.core.fixtures import scale_free_graph
+    from repro_torch.core.oracle import eval_oracle_by_label
+    from repro_torch.core.patterns import generate_workload
+    from repro_torch.examples import quickstart
+    from repro_torch.examples import wikidata_style_queries as wikidata
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import ops as kops
+    t_phase = time.perf_counter()
+    print(smi, flush=True)
+    out = {"phase": "examples", "device": smi}
+    d = wikidata.DEFAULTS
+    workload = generate_workload(d["queries"], d["preds"], d["nodes"],
+                                 seed=wikidata.WORKLOAD_SEED).queries
+    original = kops.nfa_step
+
+    def recording(X, bwd):     # keep the largest launch's inputs
+        if X.shape[0] > capture.get("examples_N", -1):
+            capture.update(examples_N=X.shape[0], examples_X=X.clone(),
+                           examples_bwd=bwd.clone())
+        return original(X, bwd)
+
+    records = {}
+    kops.nfa_step = recording
+    try:
+        for name, mod in (("quickstart", quickstart), ("wikidata", wikidata)):
+            rec, text = {}, io.StringIO()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = mod.main([], record=rec)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            if rc != 0:
+                fail(f"the {name} example exited {rc}:\n{text.getvalue()}")
+            records[name] = rec
+            out[name] = {"seconds": seconds, "queries": len(rec["answers"]),
+                         "kernel_launches": {k: launches[k]
+                                             for k in EXAMPLE_KERNELS},
+                         "stdout_lines": len(text.getvalue().splitlines())}
+    finally:
+        kops.nfa_step = original
+    for k in EXAMPLE_KERNELS:
+        if not sum(out[n]["kernel_launches"][k] for n in records):
+            fail(f"the examples launched no {k} kernel")
+    if "examples_X" not in capture:
+        fail("the examples' nfa_step launches went past the recorder")
+    wd = records["wikidata"]
+    if [q for q, _, _ in wd["answers"]] != [tuple(q) for q in workload]:
+        fail("the Wikidata-style example ran other queries than the "
+             "oracle's")
+    t0 = time.perf_counter()
+    graph = scale_free_graph(d["nodes"], d["preds"], d["edges"],
+                             seed=wikidata.GRAPH_SEED)
+    qs = records["quickstart"]
+    wants = {"quickstart": [eval_oracle_by_label(qs["graph"], *q)
+                            for q, _, _ in qs["answers"]],
+             "wikidata": [eval_oracle_by_label(graph, *q[:3],
+                                               limit=wikidata.LIMIT)
+                          for q in workload]}
+    out["oracle_s"] = time.perf_counter() - t0
+    for name, rec in records.items():
+        for (q, ring, dense), want in zip(rec["answers"], wants[name]):
+            if ring != want or dense != want:
+                fail(f"the {name} example's answers to {q} differ from the "
+                     f"host oracle's: ring {len(ring)}, dense {len(dense)}, "
+                     f"oracle {len(want)} pairs")
+        out[name]["answers_equal_to_oracle"] = True
+        out[name]["answer_pairs"] = sum(len(w) for w in wants[name])
+    out["wikidata"]["rerun"] = record_example_launch(
+        wd["engines"]["dense"], wd["answers"], capture)
+    g = wd["graph"]
+    out["wikidata"]["config"] = {
+        "nodes": g.num_nodes, "edges": int(g.s.size), "preds": g.num_preds,
+        "queries": len(workload), "limit": wikidata.LIMIT}
+    out["wikidata"]["per_pattern"] = {
+        p: {"n": wd["counts"][p], "ring_ms": v["ring"],
+            "dense_ms": v["dense"]} for p, v in sorted(wd["ms"].items())}
+    out["kernel_launches"] = {k: sum(out[n]["kernel_launches"][k]
+                                     for n in records)
+                              for k in EXAMPLE_KERNELS}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # -- the kernels line ----------------------------------------------------------
 KERNEL_SOURCES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "nfa_step": ("src/repro_torch/kernels/csrc/nfa_step.cu",
@@ -4308,7 +4477,11 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
     on the mesh path.  ``dense``: ``packed_superstep`` at phase 7's
     heaviest real R = 16 launch (``record_dense_launch``).  ``bfs``:
     ``packed_superstep`` at phase 13 (a)'s heaviest shard superstep (the
-    ring-rpq size, R = 1; :func:`bfs_heaviest_superstep`).  Each
+    ring-rpq size, R = 1; :func:`bfs_heaviest_superstep`).
+    ``examples``: ``nfa_step`` at phase 15's largest launch and
+    ``packed_superstep`` at its dense engine's heaviest launch and
+    heaviest launch of 8 rows (``rows``; :func:`record_example_launch`),
+    each with its launches there.  Each
     ``packed_superstep`` point has its bound over the grouped inputs, the
     edge pass's bound and the bytes its design moves beside it
     (:func:`superstep_bounds`) and, with ``--parent``, the parent's time
@@ -4415,6 +4588,17 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                    "S": int(dense_args[7].shape[1]),
                    "W": int(dense_args[0].shape[2]),
                    "transition_words": capture["dense_superstep_live"]}
+    eX, ebwd = capture["examples_X"], capture["examples_bwd"]
+    examples_nfa_bound = nfa_bound(eX, ebwd.shape[0])
+
+    def example_point(key, where):
+        args, _none = capture[key]
+        return {"R": int(args[0].shape[0]), "E": int(args[8].subj.shape[0]),
+                "V": int(args[0].shape[1]), "S": int(args[7].shape[1]),
+                "W": int(args[0].shape[2]),
+                "transition_words": capture[key + "_live"],
+                **superstep_check_and_time(errs, args, where)}
+
     extra = {
         "segment_or": segment_extra,
         "segmented_or_scan": scan_extra,
@@ -4448,7 +4632,17 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                                          "the serving ring's largest "
                                          "launch"),
                         "bound_ms": serve_nfa_bound[0],
-                        "bound_by": serve_nfa_bound[1]}},
+                        "bound_by": serve_nfa_bound[1]},
+            "examples": {"launches": nfa_paths["examples"],
+                         "N": int(eX.shape[0]), "S": int(ebwd.shape[0]),
+                         "W": int(eX.shape[1]),
+                         "layout": knfa.layout(eX.shape[1]),
+                         **check_and_time(errs, "nfa_step",
+                                          knfa.nfa_step_cuda,
+                                          ref.nfa_step_ref, (eX, ebwd),
+                                          "the examples' largest launch"),
+                         "bound_ms": examples_nfa_bound[0],
+                         "bound_by": examples_nfa_bound[1]}},
         "packed_superstep": {
             "launches_by_path": superstep_paths,
             "rows": {k: rows[k] for k in ("R", "S", "live_rows", "ms",
@@ -4465,7 +4659,13 @@ def kernels_line(capture: dict, launches: dict, errs: dict,
                           errs, shard_args, "the mesh's heaviest shard "
                           "launch", gathered=gathered)},
             "bfs": {"launches": superstep_paths["bfs"],
-                    **capture["bfs_superstep"]}}}
+                    **capture["bfs_superstep"]},
+            "examples": {"launches": superstep_paths["examples"],
+                         **example_point("examples_superstep",
+                                         "the examples' heaviest launch"),
+                         "rows": example_point(
+                             "examples_rows_superstep", "the examples' "
+                             "heaviest launch of source_batch rows")}}}
     out = []
     for name, (measure, (b, by), shape) in timed.items():
         times = measure()
@@ -4558,6 +4758,8 @@ def main() -> int:
     bfs = phase_dry_run(smi_line(), errs, capture)
     audit = phase_analysis(smi_line())
     emit(audit)
+    examples = phase_examples(smi_line(), capture)
+    emit(examples)
     served = {k: front[k]["kernel_launches"] for k in ("ring", "dense",
                                                        "mesh")}
     paths = {"packed": packed["kernel_launches"]["packed_superstep"],
@@ -4565,10 +4767,12 @@ def main() -> int:
              "mesh": mesh["kernel_launches"]["packed_superstep"],
              "serving_dense": served["dense"]["packed_superstep"],
              "serving_mesh": served["mesh"]["packed_superstep"],
-             "bfs": bfs["packed_superstep"]}
+             "bfs": bfs["packed_superstep"],
+             "examples": examples["kernel_launches"]["packed_superstep"]}
     nfa_paths = {"ring": report["kernel_launches"],
                  "mesh": mesh["kernel_launches"]["nfa_step"],
-                 "serving_ring": served["ring"]["nfa_step"]}
+                 "serving_ring": served["ring"]["nfa_step"],
+                 "examples": examples["kernel_launches"]["nfa_step"]}
     kernels = kernels_line(capture, {
         "nfa_step": sum(nfa_paths.values()),
         "packed_superstep": sum(paths.values()),

@@ -66,17 +66,19 @@ from . import dataflow as _df
 from .findings import Finding
 
 # Directories (and files) the gate lints by default (repo-relative):
-# the port's counterparts of the JAX package's.  ``launch/`` holds
-# ``path_lm.py`` and ``serve.py``, and ``serve.py`` is
-# ``examples/serve_rpq.py``'s counterpart.  tests/ are deliberately out
-# of scope: they may poke internals (e.g. the delta overlay) to assert
-# on them.
+# the port's counterparts of the JAX package's.  ``examples/`` holds the
+# counterparts of ``examples/quickstart.py`` and
+# ``examples/wikidata_style_queries.py``; ``launch/path_lm.py`` is
+# ``examples/train_path_lm.py``'s, and ``serve.py`` is
+# ``examples/serve_rpq.py``'s.  tests/ are deliberately out of scope:
+# they may poke internals (e.g. the delta overlay) to assert on them.
 DEFAULT_LINT_DIRS = (
     "src/repro_torch/core",
     "src/repro_torch/kernels",
     "src/repro_torch/analysis",
     "src/repro_torch/obs",
     "src/repro_torch/launch",
+    "src/repro_torch/examples",
     "src/repro_torch/serve.py",
 )
 

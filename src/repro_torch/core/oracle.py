@@ -87,6 +87,76 @@ def eval_oracle(
     return results
 
 
+def eval_oracle_by_label(
+    graph: LabeledGraph,
+    expr: str,
+    subject: Optional[int] = None,
+    obj: Optional[int] = None,
+    limit: Optional[int] = None,
+) -> Set[Tuple[int, int]]:
+    """:func:`eval_oracle`'s answers by a product BFS that follows, from
+    each NFA position, only the edges of the labels it can read: from
+    the subject when it is bound; backwards from the object when only
+    the object is (each position entered through its own label, its
+    predecessors from ``follow_mask``; no reversed expression); from
+    every node in increasing order when neither is.  With ``limit``, the
+    first ``limit`` pairs in sorted order (an unbound search stops at
+    the first source after which ``limit`` pairs are known)."""
+    g = Glushkov.from_ast(rx.parse(expr), _resolve(graph))
+    finals = [q for q in range(1, g.m + 1) if (g.F >> q) & 1]
+    # moves[q]: (label, positions entered) for each label q can read
+    moves = [[(p, [qq for qq in range(1, g.m + 1)
+                   if (g.follow_mask[q] & b) >> qq & 1])
+              for p, b in g.B.items() if g.follow_mask[q] & b]
+             for q in range(g.m + 1)]
+    backward = subject is None and obj is not None
+    by_label: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+    for p, edges in _completed_adj(graph).items():
+        for u, v in edges:
+            if backward:
+                by_label[(v, p)].append(u)
+            else:
+                by_label[(u, p)].append(v)
+
+    def search(start):
+        seen = set(start)
+        dq = deque(start)
+        while dq:
+            v, q = dq.popleft()
+            for p, qs in moves[q]:
+                for w in by_label.get((v, p), ()):
+                    for qq in qs:
+                        if (w, qq) not in seen:
+                            seen.add((w, qq))
+                            dq.append((w, qq))
+        return seen
+
+    results: Set[Tuple[int, int]] = set()
+    if backward:
+        # reverse moves: (label, positions left) for each position entered
+        into: Dict[int, List[Tuple[int, List[int]]]] = defaultdict(list)
+        for q in range(g.m + 1):
+            for p, qs in moves[q]:
+                for qq in qs:
+                    into[qq].append((p, [q]))
+        moves = [into[q] for q in range(g.m + 1)]
+        results = {(u, obj) for u, q in search([(obj, f) for f in finals])
+                   if q == 0}
+        if g.nullable:
+            results.add((obj, obj))
+    else:
+        for s in (range(graph.num_nodes) if subject is None else [subject]):
+            results.update((s, v) for v, q in search([(s, 0)])
+                           if q in finals and (obj is None or v == obj))
+            if g.nullable and obj in (None, s):
+                results.add((s, s))
+            if limit is not None and len(results) >= limit:
+                break
+    if limit is not None and len(results) > limit:
+        results = set(sorted(results)[:limit])
+    return results
+
+
 def product_subgraph_size(
     graph: LabeledGraph, expr: str, subject=None, obj=None
 ) -> Tuple[int, int]:

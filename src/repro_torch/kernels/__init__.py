@@ -41,5 +41,15 @@ def reset_launch_counts() -> None:
         _counter(k)[k] = 0
 
 
-__all__ = ["KERNELS", "KERNEL_MODULES", "launch_counts",
+def build_all() -> None:
+    """Compile every kernel (one ``nvcc`` a source, all started together)
+    and load its library, so that no later launch waits for the
+    compiler."""
+    from . import _build
+    _build.build()
+    for name in _build.SOURCES:
+        _build.library(name)
+
+
+__all__ = ["KERNELS", "KERNEL_MODULES", "build_all", "launch_counts",
            "reset_launch_counts"]

@@ -368,10 +368,8 @@ def main(argv=None) -> Dict[str, Any]:
     engine = build(a.kind, a.shards)
     if engine.device.type == "cuda":
         # build the kernels and start the card before the timed stream
-        from .kernels import _build
-        _build.build()
-        for name in _build.SOURCES:
-            _build.library(name)
+        from .kernels import build_all
+        build_all()
         torch.cuda.synchronize(engine.device)
     yardstick = build("dense")
     want = {0: yardstick.eval_many(queries)}

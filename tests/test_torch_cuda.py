@@ -1238,3 +1238,64 @@ def test_lm_families_on_card_match_host(cuda_device, arch):
     for a, b in ((cp, hp), (cd, hd)):
         assert float((a - b).abs().max()) < 0.1 * float(b.abs().max()) + 0.06
     assert not any(tk.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_path_fires_on_card(cuda_device):
+    """The card's twin of ``test_torch_engine.py``'s
+    ``test_wavefront_kernel_path_fires``: ``kernel_threshold=1`` launches
+    ``nfa_step`` on the card, with the host run's answers and counters."""
+    g = fixtures.metro_graph()
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        eng = RingRPQ(Ring(g), kernel_threshold=1, device=dev)
+        stats = QueryStats()
+        tk.reset_launch_counts()
+        res = eng.eval("l5+/bus", stats=stats)
+        runs[str(dev)] = (res, stats.kernel_batches, stats.kernel_tasks,
+                          tk.launch_counts()["nfa_step"])
+    host, card = runs["cpu"], runs[str(cuda_device)]
+    assert host[3] == 0 and card[3] > 0
+    assert card[:3] == host[:3] and host[1] > 0 and host[2] > 0
+
+
+@pytest.mark.cuda
+def test_hetero_ring_kernel_bundle_fires_on_card(cuda_device):
+    """The card's twin of ``test_torch_hetero_batch.py``'s
+    ``test_hetero_ring_kernel_bundle_fires``: the block-diagonal bundle
+    launches ``nfa_step`` on the card, with the host run's answers."""
+    g = fixtures.metro_graph()
+    queries = [Query("l5+/bus", obj=o) for o in range(g.num_nodes)] + \
+              [Query("bus|(l5/l5)", obj=o) for o in range(g.num_nodes)]
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        eng = RingRPQ(Ring(g), kernel_threshold=1, device=dev)
+        stats_out = []
+        tk.reset_launch_counts()
+        got = eng.eval_many(queries, stats_out=stats_out)
+        runs[str(dev)] = (got, eng.bundle_kernel_batches,
+                          sum(s.kernel_tasks for s in stats_out),
+                          tk.launch_counts()["nfa_step"])
+    host, card = runs["cpu"], runs[str(cuda_device)]
+    assert host[3] == 0 and card[3] > 0
+    assert card[:3] == host[:3] and host[1] > 0
+
+
+@pytest.mark.cuda
+def test_examples_on_card_match_host(cuda_device, capsys):
+    """``repro_torch.examples`` on the card (their default device): the
+    quickstart prints what it prints on the host, and the Wikidata-style
+    workload answers as on the host, through the card's kernels."""
+    from repro_torch.examples import quickstart
+    from repro_torch.examples import wikidata_style_queries as wikidata
+    quickstart.main(["--device", "cpu"])
+    host = capsys.readouterr().out
+    tk.reset_launch_counts()
+    assert quickstart.main([]) == 0
+    assert capsys.readouterr().out == host
+    argv = ["--nodes", "500", "--edges", "4000", "--queries", "10"]
+    rec_host, rec_card = {}, {}
+    wikidata.main(argv + ["--device", "cpu"], record=rec_host)
+    assert wikidata.main(argv, record=rec_card) == 0
+    assert rec_card["answers"] == rec_host["answers"]
+    assert tk.launch_counts()["packed_superstep"] > 0

@@ -5,7 +5,9 @@ through ``nfa_step`` (the port's plain PyTorch version; the reference's
 Pallas kernel in interpret mode).  Answers and the work counters
 ``node_state_activations``, ``kernel_batches``, ``kernel_tasks`` and the
 engine's ``bundle_kernel_batches`` must be equal, and the answers must
-equal the brute-force oracle."""
+equal the brute-force oracle.  Last, the cases of the reference's
+``tests/test_engines.py`` that no other port test covers, each body run
+on both packages (``torch_parity.both``)."""
 import random
 
 import numpy as np
@@ -31,8 +33,8 @@ from repro_torch.core.ring import Ring as PRing  # noqa: E402
 from repro_torch.core.scheduler import SlotScheduler as PSched  # noqa: E402
 from repro_torch.core.stats import GraphStats as PGraphStats  # noqa: E402
 from repro_torch.obs.explain import validate_report  # noqa: E402
-from torch_parity import (BINDINGS, check_eval,  # noqa: E402
-                          check_eval_many, engines)
+from torch_parity import (BINDINGS, both, cache_counters,  # noqa: E402
+                          check_eval, check_eval_many, engines, stats_fields)
 
 
 @settings(max_examples=8, deadline=None)
@@ -178,3 +180,192 @@ def test_tracer_profiler_bridge_records_spans():
     names = {e["name"] for e in tracer.events}
     assert {"ring.superstep", "ring.nfa_step"} <= names
     assert "ring.nfa_step" in {e.key for e in prof.key_averages()}
+
+
+# -- the reference's tests/test_engines.py cases not covered above ------------
+
+
+def test_eval_many_metro_hot_expr_batch():
+    """Serving shape: one hot expression, many endpoints, both engines."""
+    def body(P):
+        g = P.fixtures.metro_graph()
+        queries = [P.Query("l5+/bus", obj=o) for o in range(g.num_nodes)]
+        ring_res = P.make_engine(g, "ring").eval_many(queries)
+        dense_res = P.make_engine(g, "dense").eval_many(queries)
+        assert ring_res == dense_res
+        assert any(r for r in ring_res)
+        return ring_res
+    both(body)
+
+
+def test_wavefront_matches_sequential_traversal():
+    """Wavefront, sequential and forced-kernel traversals: the same answers
+    and Theorem-4.1 work, and the same as the reference's."""
+    def body(P):
+        rnd = random.Random(13)
+        out = []
+        for trial in range(8):
+            V, P_, E = (rnd.randrange(4, 12), rnd.randrange(1, 4),
+                        rnd.randrange(5, 30))
+            g = P.fixtures.random_graph(V, P_, E, seed=trial + 900,
+                                        pred_zipf=False)
+            ring = P.Ring(g)
+            engines_ = {
+                "wavefront": P.RingRPQ(ring),
+                "sequential": P.RingRPQ(ring, wavefront=False),
+                "kernel": P.RingRPQ(ring, kernel_threshold=1),
+            }
+            expr = str(rand_expr_ast(rnd, 2, P_))
+            for (sub, ob) in [(None, 0), (0, None), (None, None)]:
+                runs = {}
+                for name, eng in engines_.items():
+                    stats = P.QueryStats()
+                    res = eng.eval(expr, subject=sub, obj=ob, stats=stats)
+                    runs[name] = (res, stats.node_state_activations)
+                    out.append((name, res, stats_fields(stats)))
+                assert runs["wavefront"] == runs["sequential"], expr
+                assert runs["kernel"] == runs["sequential"], expr
+        return out
+    both(body)
+
+
+def test_wavefront_kernel_path_fires():
+    """``kernel_threshold=1`` dispatches through ``nfa_step``: batches and
+    tasks above 0 and equal to the reference's.  On the CPU the port runs
+    the plain version, which counts no launch (the card's twin is in
+    ``tests/test_torch_cuda.py``)."""
+    from repro_torch import kernels
+
+    def body(P):
+        eng = P.RingRPQ(P.Ring(P.fixtures.metro_graph()), kernel_threshold=1)
+        stats = P.QueryStats()
+        res = eng.eval("l5+/bus", stats=stats)
+        assert stats.kernel_batches > 0
+        assert stats.kernel_tasks > 0
+        return res, stats_fields(stats)
+    kernels.reset_launch_counts()
+    both(body)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_plan_cache_eviction_accounting():
+    def body(P):
+        cache = P.PlanCache(max_entries=2)
+        cache.get("A", lambda: "a")
+        cache.get("B", lambda: "b")
+        assert cache.get("A", lambda: "a'") == "a"
+        cache.get("C", lambda: "c")
+        assert cache.get("A", lambda: "NEW-A") == "a"
+        assert cache.get("B", lambda: "new-b") == "new-b"
+        assert (cache.hits, cache.misses, cache.evictions) == (2, 4, 2)
+        assert len(cache) == 2
+        out = [cache_counters(cache)]
+
+        cache = P.PlanCache(max_entries=2)
+        cache.get("old", lambda: 0)
+        cache.get("hot", lambda: 1)
+
+        def build_x():
+            assert cache.get("hot", lambda: -1) == 1
+            cache.get("extra", lambda: 2)
+            return 3
+
+        assert cache.get("X", build_x) == 3
+        assert len(cache) == 2
+        assert cache.get("X", lambda: -1) == 3
+        out.append((cache_counters(cache), list(cache._entries)))
+
+        cache = P.PlanCache(max_entries=2)
+        h = m = 0
+        for i in range(20):
+            cache.get("hot", lambda: "v")
+            m += 1 if i == 0 else 0
+            h += 0 if i == 0 else 1
+            cache.get(f"cold{i}", lambda: i)
+            m += 1
+            assert cache.get("hot", lambda: "REBUILT") == "v"
+            h += 1
+            assert len(cache) <= 2
+        assert (cache.hits, cache.misses) == (h, m)
+        out.append((cache_counters(cache), list(cache._entries)))
+        return out
+    both(body)
+
+
+def test_plan_cache_shares_automata():
+    def body(P):
+        g = P.fixtures.metro_graph()
+        out = []
+        for kind in ("ring", "dense"):
+            eng = P.make_engine(g, kind)
+            eng.eval("l5+/bus", obj=0)
+            assert eng.plans.misses >= 1
+            h0 = eng.plans.hits
+            eng.eval_many([P.Query("l5+/bus", obj=o) for o in range(3)])
+            assert eng.plans.hits > h0, kind
+            assert eng.plans.misses <= 2, kind
+            m0 = eng.plans.misses
+            eng.eval("(l5)+/(bus)", obj=0)
+            assert eng.plans.misses == m0, kind
+            out.append((cache_counters(eng.plans),
+                        cache_counters(eng.results)))
+        return out
+    both(body)
+
+
+def test_limit_truncation_deterministic():
+    """``limit=k`` answers are the k smallest pairs, across ring/dense,
+    eval/eval_many, repeated runs and result-cache replays; the port's
+    engines hold the same caches' counters as the reference's."""
+    def body(P):
+        g = P.fixtures.random_graph(14, 3, 50, seed=11, pred_zipf=False)
+        exprs = ["0/1*", "(0|1)/2", "2+", "^1/0*"]
+        cases = [(None, None), (None, 2), (4, None), (4, 2)]
+        out = []
+        for expr in exprs:
+            for s, o in cases:
+                full = P.eval_oracle(g, expr, subject=s, obj=o)
+                for k in (0, 1, 2, 5):
+                    want = set(sorted(full)[:k]) if len(full) > k \
+                        else set(full)
+                    for kind in ("ring", "dense"):
+                        eng = P.make_engine(g, kind)
+                        first = eng.eval(expr, s, o, limit=k)
+                        assert first == want, (kind, expr, s, o, k)
+                        assert eng.eval(expr, s, o, limit=k) == want
+                        batched = eng.eval_many(
+                            [P.Query(expr, s, o, limit=k)])[0]
+                        assert batched == want, (kind, expr, s, o, k)
+                        out.append((first, cache_counters(eng.results)))
+        return out
+    both(body)
+
+
+def test_result_cache_superset_probe():
+    def body(P):
+        cache = P.ResultCache()
+        cache.put(("E", 1, None, None), {(1, 5), (1, 2), (1, 9)})
+        got = cache.get_covering(("E", 1, None, 2))
+        assert got == frozenset({(1, 2), (1, 5)})
+        assert (cache.hits, cache.misses) == (1, 0)
+        cache2 = P.ResultCache()
+        cache2.put(("F", None, 0, 3), {(1, 0), (2, 0), (3, 0)})
+        got2 = cache2.get_covering(("F", None, 0, 2))
+        assert got2 == frozenset({(1, 0), (2, 0)})
+        assert (cache2.hits, cache2.misses) == (1, 0)
+        assert cache2.get_covering(("F", None, 0, 5)) is None
+        assert cache2.misses == 1
+        out = [got, got2, cache_counters(cache), cache_counters(cache2)]
+
+        g = P.fixtures.metro_graph()
+        for kind in ("ring", "dense"):
+            eng = P.make_engine(g, kind)
+            full = eng.eval_many([P.Query("l5+/bus", obj=0)])[0]
+            h0 = eng.results.hits
+            lim = eng.eval_many([P.Query("l5+/bus", obj=0, limit=1)])[0]
+            assert eng.results.hits == h0 + 1, kind
+            want = set(sorted(full)[:1]) if len(full) > 1 else full
+            assert lim == want, kind
+            out.append((full, lim, cache_counters(eng.results)))
+        return out
+    both(body)

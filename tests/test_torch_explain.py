@@ -4,7 +4,9 @@ capture -> dump -> load -> replay parity under interleaved updates (the
 replay held to the JAX engines too), timeout and backpressure records,
 bounded-ring drop accounting, schema-valid dumps, earliest-deadline-first
 admission, the self-observability metrics, and the ``/flight`` and
-``/explain`` endpoints."""
+``/explain`` endpoints; then EXPLAIN's determinism and contents and the
+scheduler's ANALYZE rules, each body run on both packages
+(``torch_parity.both``)."""
 import asyncio
 import json
 
@@ -21,6 +23,7 @@ from repro_torch.core.scheduler import (AsyncServer, Backpressure,  # noqa: E402
                                         SlotScheduler)
 from repro_torch.obs import recorder as orecorder  # noqa: E402
 from repro_torch.obs.explain import validate_report  # noqa: E402
+from torch_parity import both  # noqa: E402
 
 
 def _graph(seed=3):
@@ -221,3 +224,95 @@ def test_async_server_flight_and_explain_endpoints(kind):
     validate_report(analyzed_report)
     assert analyzed_report["execution"]["timeline"]
     assert missing[0] == 400 and nope[0] == 404
+
+
+# -- EXPLAIN, and ANALYZE under the scheduler ---------------------------------
+
+
+def test_explain_is_deterministic_and_execution_free():
+    def body(P):
+        ox, ot = P.ox, P.ot
+        g = _graph()
+        out = []
+        for kind in ("ring", "dense"):
+            eng = P.make_engine(g, kind)
+            q = P.Query("0/1*", obj=2)
+            tr = ot.Tracer()
+            tr.enable()
+            with ot.use(tr):
+                r1 = eng.explain(q)
+            ox.validate_report(r1)
+            assert r1["engine"] == kind and r1["analyze"] is False
+            assert "execution" not in r1
+            kernel = [e for e in tr.events if e.get("cat") == "kernel"]
+            steps = [e for e in tr.events
+                     if e["name"].endswith(".superstep")]
+            assert kernel == [] and steps == [], (kind, tr.events)
+            r2 = eng.explain(q)
+            text = json.dumps(r1, sort_keys=True)
+            assert text == json.dumps(r2, sort_keys=True)
+            out.append((text, sorted(e["name"] for e in tr.events)))
+        return out
+    both(body)
+
+
+def test_explain_report_contents():
+    def body(P):
+        ox = P.ox
+        eng = P.make_engine(_graph(), "dense")
+        r = eng.explain(P.Query("(0|1)/2", obj=4))
+        assert r["automaton"]["states"] == 4
+        assert r["plan"]["mode"] in ("forward", "reverse", "split", "naive")
+        lits = {row["lit"] for row in r["selectivity"]["literals"]}
+        assert lits == {"0", "1", "2"}
+        for row in r["selectivity"]["literals"]:
+            assert row["freq"] >= 0 and row["distinct_subj"] >= 0
+        assert r["collective"]["bytes_per_superstep"] == 0
+        assert r["result_cached"] is False
+        eng.eval_many([P.Query("(0|1)/2", obj=4)])
+        cached = eng.explain(P.Query("(0|1)/2", obj=4))
+        assert cached["result_cached"] is True
+        return (json.dumps(r, sort_keys=True),
+                json.dumps(cached, sort_keys=True))
+    both(body)
+
+
+def test_analyze_respects_scheduler_deadline():
+    """The reference's injected clock: the ticket's 1 s deadline passes
+    (the clock jumps to 5 s) before admission, so it times out and its
+    sink gets no report."""
+    def body(P):
+        Sched, ox = P.SlotScheduler, P.ox
+        clk = [0.0]
+        sched = Sched(P.make_engine(_graph(), "ring"), max_slots=1,
+                      clock=lambda: clk[0])
+        sink = ox.ExplainSink()
+        t = sched.submit(P.Query("0/1*", obj=2, explain=sink),
+                         deadline_s=1.0)
+        clk[0] = 5.0
+        sched.drain()
+        with pytest.raises(TimeoutError) as err:
+            t.result()
+        assert sink.report is None
+        return str(err.value), [(r["status"], r["expr"])
+                                for r in sched.recorder.records()]
+    both(body)
+
+
+def test_scheduler_analyzes_even_when_cached():
+    def body(P):
+        Sched, ox = P.SlotScheduler, P.ox
+        sched = Sched(P.make_engine(_graph(seed=9), "dense"), max_slots=2)
+        q = P.Query("0/1*", obj=3)
+        t0 = sched.submit(q)
+        sched.drain()
+        sink = ox.ExplainSink()
+        t1 = sched.submit(P.Query(q.expr, obj=q.obj, explain=sink))
+        sched.drain()
+        assert t1.result() == t0.result()
+        ox.validate_report(sink.report)
+        tl = sink.report["execution"]["timeline"]
+        assert tl, "ANALYZE must execute (and produce a timeline)"
+        return t1.result(), sink.report["plan"], \
+            [(r["frontier"], r["activations"]) for r in tl]
+    both(body)

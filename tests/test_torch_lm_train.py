@@ -264,3 +264,35 @@ def test_entry_points_without_cuda_raise(monkeypatch):
                                    log_fn=lambda s: None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_straggler_detection(monkeypatch):
+    """The reference's ``test_straggler_detection`` on the port, made to
+    assert the mechanism: the loop times each step on its own clock, here
+    a virtual one that each step advances by 0.1 s and the injected slow
+    step (step 9, 12 steps, ``straggler_factor=2.5``) by 0.5 s more.  That
+    step, and no other, is listed in ``straggler_steps``."""
+    from types import SimpleNamespace
+    cfg = tiny_cfg()
+    data = pipeline.SyntheticLM(cfg.vocab_size, seq_len=16, global_batch=4)
+    now = [0.0]
+    monkeypatch.setattr(loop, "time", SimpleNamespace(
+        perf_counter=lambda: now[0]))
+    make = loop.make_train_step
+
+    def slow_make(*args, **kwargs):
+        step_fn, calls = make(*args, **kwargs), [0]
+
+        def timed(state, batch):
+            out = step_fn(state, batch)
+            now[0] += 0.1 + (0.5 if calls[0] == 9 else 0.0)
+            calls[0] += 1
+            return out
+        return timed
+
+    monkeypatch.setattr(loop, "make_train_step", slow_make)
+    rep = loop.train(cfg, data, num_steps=12, save_every=0,
+                     straggler_factor=2.5, device="cpu", **QUIET)
+    assert rep.steps_run == 12
+    assert rep.straggler_steps == [9]
+    assert rep.step_seconds[9] == pytest.approx(0.6)

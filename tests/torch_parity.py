@@ -90,3 +90,107 @@ def check_dense_eval_many(ref, port, g, queries, deadline_s=None):
     assert port.traces.retraces == ref.traces.retraces
     assert port._superstep_acc == ref._superstep_acc
     return got
+
+
+# -- one test body through either package --------------------------------------
+# A ported reference test is written once as ``body(P)`` over a namespace of
+# one package's entry points; the test runs it on ``REF`` and on ``PORT``
+# (every port engine on ``device="cpu"``, every graph through
+# ``convert.graph_from_reference``) and asserts the two observations equal.
+
+# wall-clock fields of ``QueryStats``: the only ones two runs may differ in
+TIMED_FIELDS = ("queue_wait_s", "service_s", "supersteps_s")
+
+
+def stats_fields(st):
+    """Every ``QueryStats`` field but the scheduler's wall-clock ones."""
+    return {k: v for k, v in st.as_dict().items() if k not in TIMED_FIELDS}
+
+
+def cache_counters(cache):
+    """A plan or result cache's counters (a result cache's expirations
+    too) and its size."""
+    keys = ("hits", "misses", "evictions", "invalidations", "expirations")
+    return {k: getattr(cache, k) for k in keys if hasattr(cache, k)} | {
+        "len": len(cache)}
+
+
+def _reference():
+    from types import SimpleNamespace
+
+    from repro.core import engines, fixtures, oracle, patterns, planner
+    from repro.core import regex, stats, wavelet
+    from repro.core.dense import DenseRPQ
+    from repro.core.glushkov import Glushkov, build
+    from repro.core.ring import LabeledGraph, Ring
+    from repro.core.rpq import QueryStats, RingRPQ
+    from repro.core.scheduler import SlotScheduler
+    from repro.kernels.nfa_step import pack_block_diagonal
+    from repro.obs import explain, metrics, trace
+    return SimpleNamespace(
+        name="reference", graph=lambda g: g, Ring=Ring, RingRPQ=RingRPQ,
+        DenseRPQ=DenseRPQ, make_engine=engines.make_engine,
+        Query=engines.Query, QueryStats=QueryStats,
+        ResultCache=engines.ResultCache, PlanCache=engines.PlanCache,
+        PlanBundle=engines.PlanBundle, result_key=engines.result_key,
+        normalized_key=engines.normalized_key, eval_many=engines.eval_many,
+        LabeledGraph=LabeledGraph, GraphStats=stats.GraphStats,
+        BitVector=wavelet.BitVector, WaveletTree=wavelet.WaveletTree,
+        Glushkov=Glushkov, build=build, rx=regex, qp=planner,
+        fixtures=fixtures, eval_oracle=oracle.eval_oracle,
+        product_subgraph_size=oracle.product_subgraph_size,
+        classify=patterns.classify,
+        generate_workload=patterns.generate_workload,
+        pack_block_diagonal=pack_block_diagonal, SlotScheduler=SlotScheduler,
+        ox=explain, om=metrics, ot=trace)
+
+
+def _port():
+    from functools import partial
+    from types import SimpleNamespace
+
+    from repro_torch.core import engines, fixtures, oracle, patterns
+    from repro_torch.core import planner, regex, stats, wavelet
+    from repro_torch.core.dense import DenseRPQ
+    from repro_torch.core.glushkov import Glushkov, build
+    from repro_torch.core.ring import LabeledGraph, Ring
+    from repro_torch.core.rpq import QueryStats, RingRPQ
+    from repro_torch.core.scheduler import SlotScheduler
+    from repro_torch.kernels.nfa_step import pack_block_diagonal
+    from repro_torch.obs import explain, metrics, trace
+    conv = convert.graph_from_reference
+    return SimpleNamespace(
+        name="port", graph=conv, Ring=lambda g: Ring(conv(g)),
+        RingRPQ=partial(RingRPQ, device="cpu"),
+        DenseRPQ=lambda g, **kw: DenseRPQ(conv(g), device="cpu", **kw),
+        make_engine=lambda g, kind="ring", **kw: engines.make_engine(
+            conv(g), kind, device="cpu", **kw),
+        Query=engines.Query, QueryStats=QueryStats,
+        ResultCache=engines.ResultCache, PlanCache=engines.PlanCache,
+        PlanBundle=engines.PlanBundle, result_key=engines.result_key,
+        normalized_key=engines.normalized_key, eval_many=engines.eval_many,
+        LabeledGraph=LabeledGraph, GraphStats=stats.GraphStats,
+        BitVector=wavelet.BitVector, WaveletTree=wavelet.WaveletTree,
+        Glushkov=Glushkov, build=build, rx=regex, qp=planner,
+        fixtures=fixtures,
+        eval_oracle=lambda g, *a, **kw: oracle.eval_oracle(conv(g), *a, **kw),
+        product_subgraph_size=lambda g, *a, **kw:
+            oracle.product_subgraph_size(conv(g), *a, **kw),
+        classify=patterns.classify,
+        generate_workload=patterns.generate_workload,
+        pack_block_diagonal=pack_block_diagonal, SlotScheduler=SlotScheduler,
+        ox=explain, om=metrics, ot=trace)
+
+
+REF = _reference()
+PORT = _port()
+
+
+def both(body, *args, **kwargs):
+    """``body(P, ...)`` on the reference and on the port: the reference
+    test's own asserts run inside ``body`` on each, and the two returned
+    observations must be equal.  Returns the port's."""
+    want = body(REF, *args, **kwargs)
+    got = body(PORT, *args, **kwargs)
+    assert got == want
+    return got
