@@ -39,7 +39,9 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      of 2,048 one-endpoint requests through ``eval_many`` on the card;
      the answers and work counters must equal a host run of the same
      engine with the kernel's plain version, and the answers a host run
-     with scalar tables; a profiled rerun gives the card's busy share;
+     with scalar tables (the selection's, in a process of its own beside
+     phase 1); a profiled rerun of the first 512 requests gives the
+     card's busy share;
      the line names the layout of the batch's ``nfa_step`` launch;
      two of the hub closures left out of the batch run on the card under
      a 1 s deadline, and each ``TimeoutError`` must come within
@@ -59,9 +61,10 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      closures phase 2 left out, with their supersteps and seconds; (c)
      the first hub closures rerun on the host with the plain version
      must give the same visited words and supersteps; a profiled rerun
-     of (b) gives the card's idle share and ``cudaLaunchKernel`` calls a
-     superstep; ``packed_superstep`` (beside the unfused superstep),
-     and ``nfa_step`` and ``segment_or`` on its transition, are held to
+     of (b)'s first 64 hub closures gives the card's idle share and
+     ``cudaLaunchKernel`` calls a superstep; ``packed_superstep``
+     (beside the unfused superstep), and ``nfa_step`` and ``segment_or``
+     on its transition, are held to
      their plain versions at the superstep of (a) and (b) with the most
      non-zero words; the path must launch ``packed_superstep`` and
      neither of the other two (phase 4's packed BFS too);
@@ -71,11 +74,12 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      ``BitVector.rank1``;
   7. dense path: ``make_engine(graph, kind="dense")`` on phase 2's graph
      answers phase 2's requests through ``eval_many`` (equal to the
-     ring's) and the hub closures, one request a call and in one batch
-     (equal to phase 5's); two hub closures under a 1 s deadline; a
-     mixed batch again on the host with the plain version (equal answers
-     and supersteps); ANALYZE of one hub closure; a profiled rerun
-     (idle share, ``cudaLaunchKernel`` and flag reads a superstep); a
+     ring's) and the hub closures, the first 64 one request a call and
+     all 605 in one batch (equal to phase 5's); two hub closures under a
+     1 s deadline; a mixed batch again on the host with the plain
+     version (equal answers and supersteps); ANALYZE of one hub closure;
+     a profiled rerun of the first 512 requests (idle share,
+     ``cudaLaunchKernel`` and flag reads a superstep); a
      rerun that records the heaviest R = 16 launch; a ``SlotScheduler``
      over the engine as phase 3, and the seconds its live update's edge
      epoch takes to group by object on the card.  The path must launch
@@ -110,10 +114,11 @@ Phases, one JSON line each (plus the raw ``nvidia-smi`` name/power line):
      --full --steps 40``; (c) a 2-layer cut failing at step 2 and
      resuming against an uninterrupted run under deterministic
      algorithms, and (a)'s full state saved and restored once, bit for
-     bit, on a thread beside (b)-(e); (d) ``launch.serve`` at B = 4, prompt 2,048, 32 tokens, and
-     decode consistency at full width; (e) the tiny config's loss and
-     gradients on the card against the CPU.  The LM must launch none of
-     the RPQ kernels;
+     bit, on a thread beside (b)-(e) and phases 11-12 (its line,
+     ``lm_full_checkpoint``, after phase 12's); (d) ``launch.serve`` at
+     B = 4, prompt 2,048, 32 tokens, and decode consistency at full
+     width; (e) the tiny config's loss and gradients on the card against
+     the CPU.  The LM must launch none of the RPQ kernels;
  11. the LM families (``repro_torch.launch.serve``, ``train.step``): (a)
      olmoe-1b-7b (moe), (b) paligemma-3b (vlm), (c) mamba2-2.7b (ssm), (d)
      zamba2-7b (hybrid), (e) seamless-m4t-medium (encdec), each served at
@@ -279,8 +284,14 @@ HOST_CHECKS = 8
 # log-sized batch merges supersteps of >= 64 tasks, the kernel's
 # threshold; 32 requests never launch it (see PERF.md).
 BATCH = 2048
+# phase 2's graph: scale_free_graph(nodes, preds, edges, seed=)
+MAIN_GRAPH = ((200_000, 64, 2_000_000), 7)
 BATCH_DEADLINE_S = 60.0              # the paper's per-query timeout
 SCAN_CAP = 2_000                     # triples one probe superstep may scan
+# the requests phase 2's profiled rerun answers (cut from all 2,048 for
+# the script's time limit: the profile's event processing took most of the
+# rerun)
+PROFILED_REQUESTS = 512
 # skipped hub closures rerun under a short deadline, to time its overrun
 OVERRUN_PROBES = 2
 OVERRUN_DEADLINE_S = 1.0
@@ -298,6 +309,21 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
+
+
+class Stamps:
+    """Seconds between the named points of a phase, its line's
+    ``substep_s``: ``mark(name)`` adds the time since the previous mark
+    (or since the stamps were made) to ``seconds[name]``."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds: dict = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 TIMING_BUDGET_MS = 1_000.0   # a slow function's runs: about this in all
@@ -1196,21 +1222,54 @@ def deadline_overrun(ring, stats, queries, deadline_s: float, cap_s: float,
             "probes": out}
 
 
-def run_main_path(graph, device: str, count: int, deadline_s: float,
+def select_beside():
+    """:func:`select_requests` in a process of its own (``spawn``: the
+    parent holds a CUDA context), started before phase 1 so the host's
+    one-request-at-a-time selection runs beside the kernels' checks.
+    Returns the executor's future; the process ends with it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(_selection, BATCH, SCAN_CAP, BATCH_DEADLINE_S / 4)
+    pool.shutdown(wait=False)
+    return future
+
+
+def _selection(count: int, scan_cap: int, backstop_s: float):
+    """The selection on phase 2's graph and ring, both built again from
+    their seed (the index ``make_engine`` builds), scalar tables on the
+    host; the report adds the ring's build seconds."""
+    from repro_torch.core import fixtures
+    from repro_torch.core.ring import Ring
+    from repro_torch.core.rpq import RingRPQ
+    sizes, seed = MAIN_GRAPH
+    graph = fixtures.scale_free_graph(*sizes, seed=seed)
+    t0 = time.perf_counter()
+    host = RingRPQ(Ring(graph), device="cpu")          # scalar tables
+    ring_s = time.perf_counter() - t0
+    queries, answers, skipped, report = select_requests(
+        host, graph, count, scan_cap, backstop_s)
+    return queries, answers, skipped, {**report, "ring_build_s": ring_s}
+
+
+def run_main_path(graph, device: str, deadline_s: float, selection,
                   capture=None):
-    """Build the engine, select the requests, answer them on ``device``
-    and hold the answers and counters to two host runs."""
+    """Build the engine, take the requests ``selection`` (the future of
+    :func:`select_beside`) selected, answer them on ``device`` and hold
+    the answers and counters to two host runs."""
     from repro_torch import kernels
     from repro_torch.core.engines import make_engine
     from repro_torch.core.rpq import RingRPQ
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import ops as kops
+    stamps = Stamps()
     t0 = time.perf_counter()
     engine = make_engine(graph, device=device)
     ring_s = time.perf_counter() - t0
-    host = RingRPQ(engine.ring, device="cpu")          # scalar tables
-    queries, host_answers, skipped, sel = select_requests(
-        host, graph, count, SCAN_CAP, deadline_s / 4)
+    stamps.mark("ring_build")
+    queries, host_answers, skipped, sel = selection.result()
+    stamps.mark("selection_wait")
 
     original = kops.nfa_step
 
@@ -1230,12 +1289,14 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
         launches = kernels.launch_counts()
     finally:
         kops.nfa_step = original
+    stamps.mark("card_batch")
 
     plain = RingRPQ(engine.ring, device="cpu", kernel_threshold=64)
     plain_stats = []
     t0 = time.perf_counter()
     plain_answers = plain.eval_many(queries, stats_out=plain_stats)
     plain_s = time.perf_counter() - t0
+    stamps.mark("plain_kernel_host_batch")
     for i, q in enumerate(queries):
         if answers[i] != plain_answers[i]:
             fail(f"answer of {q} differs from the plain-kernel host run")
@@ -1248,18 +1309,23 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
         fail("bundle_kernel_batches differs from the plain-kernel host run")
     task_counts = [k[1] for k in engine.traces.signatures
                    if k[0] == "nfa_step"]
-    busy = device_busy(engine.ring, device, queries, deadline_s)
+    stamps.mark("compare")
+    busy = device_busy(engine.ring, device, queries[:PROFILED_REQUESTS],
+                       deadline_s)
+    stamps.mark("profiled_rerun")
     # how far past its deadline a timed-out ring request may settle: these
     # probes and phase 9 (a) fail beyond it (PERF.md §6)
     from repro_torch.serve import OVERRUN_BOUND_S
     overrun = deadline_overrun(engine.ring, engine.graph_stats,
                                skipped[:OVERRUN_PROBES], OVERRUN_DEADLINE_S,
                                OVERRUN_CAP_S, OVERRUN_BOUND_S)
+    stamps.mark("overrun_probes")
     report = {
         "graph": {"nodes": graph.num_nodes, "preds": graph.num_preds,
                   "edges": int(graph.s.size),
                   "ring_triples": int(engine.ring.n)},
-        "cut": None,
+        "cut": f"the profiled rerun: the first {PROFILED_REQUESTS} of "
+               f"{len(queries)} requests",
         "ring_build_s": ring_s, "selection": sel,
         "requests": len(queries), "batch_s": batch_s,
         "plain_kernel_host_batch_s": plain_s,
@@ -1274,13 +1340,15 @@ def run_main_path(graph, device: str, count: int, deadline_s: float,
         "activations": sum(s.node_state_activations for s in stats),
         **busy,
         "skipped_hub_deadline_overrun": overrun,
+        "substep_s": stamps.seconds,
     }
     return engine, queries, answers, skipped, report
 
 
 def device_busy(ring, device, queries, deadline_s):
-    """Rerun the batch on a fresh engine under ``torch.profiler``: the
-    card's kernel and copy time against the batch's wall time."""
+    """Rerun ``queries`` (the batch's first) on a fresh engine under
+    ``torch.profiler``: the card's kernel and copy time against the
+    rerun's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.rpq import RingRPQ
@@ -1293,7 +1361,8 @@ def device_busy(ring, device, queries, deadline_s):
         wall = time.perf_counter() - t0
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"profiled_batch_s": wall, "device_busy_ms": busy_us / 1e3,
+    return {"profiled_batch_s": wall, "profiled_requests": len(queries),
+            "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall}
 
 
@@ -1399,6 +1468,13 @@ def phase_oracle(device: str, num_queries: int = 8):
 
 
 # -- phase 5 -----------------------------------------------------------------
+# the hub closures phase 5's profiled rerun of (b) and phase 7's
+# one-request-a-call pass answer (cut from all 605 for the script's time
+# limit: the profile's event processing, not the run, took most of phase
+# 5; the one-batch pass of phase 7 answers all 605)
+HUB_SUBSET = 64
+
+
 class HeaviestLaunch:
     """``packed_bfs``'s ``on_step`` hook: keeps the superstep whose
     transition has the most non-zero words (among those of the largest
@@ -1443,14 +1519,14 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     through ``packed_bfs`` alone (``in_packed_bfs_s``: apart from the
     answer sets ``packed_eval`` builds); (c) the first of those again on
     the card and on the host, with the plain versions, held word for
-    word.  A profiled rerun of (b) gives the card's idle share, the host
-    ops and kernels that take its time, and the ``cudaLaunchKernel``
-    calls a superstep.  The launch counts cover (a) and (b) through
-    ``packed_eval``.  Then (a) and (b) run once more through
-    ``packed_bfs`` with the recorder, untimed, and ``packed_superstep``
-    is checked and timed on the superstep with the most non-zero
-    transition words, and ``nfa_step`` and ``segment_or`` on that
-    superstep's transition input and values.  (b)'s answer sets are
+    word.  A profiled rerun of (b)'s first ``HUB_SUBSET`` hub closures
+    gives the card's idle share, the host ops and kernels that take its
+    time, and the ``cudaLaunchKernel`` calls a superstep.  The launch
+    counts cover (a) and (b) through ``packed_eval``.  Then (a) and (b)
+    run once more through ``packed_bfs`` with the recorder, untimed, and
+    ``packed_superstep`` is checked and timed on the superstep with the
+    most non-zero transition words, and ``nfa_step`` and ``segment_or``
+    on that superstep's transition input and values.  (b)'s answer sets are
     appended to ``hub_answers``, for phase 7."""
     import numpy as np
     import torch
@@ -1461,10 +1537,12 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
                                          packed_eval)
     from repro_torch.kernels import nfa_step as knfa
     from repro_torch.kernels import ref
+    stamps = Stamps()
     t0 = time.perf_counter()
     dg = DenseGraph.from_graph(graph, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    stamps.mark("dense_graph_build")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1475,6 +1553,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
         if got != want:
             fail(f"packed answer of {q} differs from the ring engine's")
     batch_s = time.perf_counter() - t0
+    stamps.mark("a_batch")
 
     hub = []
     t0 = time.perf_counter()
@@ -1487,6 +1566,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     hub_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     check_packed_launches(launches, "the packed path")
+    stamps.mark("b_hub_closures")
 
     def bfs(q):
         return one_endpoint_bfs(graph, rx.parse(q.expr), q.subject, q.obj)
@@ -1498,6 +1578,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
             fail(f"packed_bfs of {q} took {it} supersteps, packed_eval "
                  f"{steps}")
     in_bfs_s = time.perf_counter() - t0
+    stamps.mark("b_in_packed_bfs")
 
     # (c) the first hub closures on the card and on the host
     host = DenseGraph.from_graph(graph, device="cpu")
@@ -1516,6 +1597,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
         fail(f"only {len(checked)} of {HOST_CHECKS} hub closures were "
              f"checked on the host")
     host_s = time.perf_counter() - t0
+    stamps.mark("c_host_checks")
 
     # the recorder's runs, and the three kernels at the heaviest superstep
     heaviest = HeaviestLaunch(dg)
@@ -1523,6 +1605,7 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
     for q in list(queries) + list(skipped):
         packed_bfs(dg, *bfs(q), on_step=heaviest)
     record_s = time.perf_counter() - t0
+    stamps.mark("recorder_rerun")
     X, bwd = heaviest.nfa_step
     vals, _ids, V = capture["segment_or"] = heaviest.segment_or
     sup = capture["packed_superstep"] = heaviest.superstep
@@ -1542,6 +1625,10 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
         "segment_or": {"nonzero_words": heaviest.key[1],
                        "nonzero_rows": int((vals != 0).any(1).sum()),
                        "bound": segment_or_bound(vals, V)}}
+    stamps.mark("kernel_checks")
+    busy = packed_busy(dg, graph, skipped[:HUB_SUBSET],
+                       sum(h[1] for h in hub[:HUB_SUBSET]))
+    stamps.mark("profiled_rerun")
 
     secs = np.array([h[0] for h in hub])
     steps = np.array([h[1] for h in hub])
@@ -1569,11 +1656,14 @@ def phase_packed(graph, queries, ring_answers, skipped, errs: dict,
             "recorder_s": record_s,
             "largest_E_per_launch": heaviest.largest_E,
             "kernels_at_heaviest_superstep": at_launch,
-            **packed_busy(dg, graph, skipped, int(steps.sum()))}
+            "cut": f"the profiled rerun: the first {HUB_SUBSET} of "
+                   f"{len(skipped)} hub closures",
+            **busy, "substep_s": stamps.seconds}
 
 
 def packed_busy(dg, graph, skipped, supersteps: int, top: int = 8):
-    """Rerun (b) under ``torch.profiler``: the card's kernel and copy
+    """Rerun the hub closures ``skipped`` (of (b)), which took
+    ``supersteps``, under ``torch.profiler``: the card's kernel and copy
     time against the rerun's wall time, the ``top`` host ops (self CPU
     time) and device kernels (self device time) of the rerun, and its
     CUDA runtime launch and copy calls, per superstep too."""
@@ -1601,7 +1691,8 @@ def packed_busy(dg, graph, skipped, supersteps: int, top: int = 8):
 
     runtime = {e.key: e.count for e in host
                if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
-    return {"profiled_hub_s": wall, "device_busy_ms": busy_us / 1e3,
+    return {"profiled_hub_s": wall, "profiled_hubs": len(skipped),
+            "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "runtime_calls": runtime,
             "cudaLaunchKernel_per_superstep":
@@ -1702,19 +1793,19 @@ def _timed_dense_batch(engine, queries, deadline_s):
 def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                 adds, capture: dict):
     """The dense engine (``make_engine(kind="dense")``) on the card over
-    phase 2's graph, nothing cut: (1) phase 2's requests through
-    ``eval_many``, answers equal to the ring's; (2) the hub closures, one
-    ``eval_many`` a request and then all in one batch, answers equal to
-    phase 5's packed path; (3) two hub closures under a 1 s deadline;
-    (4) a few requests and hub closures in one batch again on the host
-    with the plain version (R > 1): equal answers and supersteps; (6)
-    ANALYZE of one hub closure: a timeline row a superstep; (7) a
-    profiled rerun of (1) without a deadline; (8) a rerun of (1) with a
-    recorder that keeps the heaviest R = 16 launch, for the kernels
-    line.  The launch counts cover (1) and (2).  Then (5), serving: a
-    ``SlotScheduler`` over the engine, as phase 3, with its own counts,
-    and the seconds the grouped edge layout takes to build after its
-    live update.  Every batch runs under a deadline, so the engine
+    phase 2's graph: (1) phase 2's requests through ``eval_many``,
+    answers equal to the ring's; (2) the hub closures, the first
+    ``HUB_SUBSET`` one ``eval_many`` a request and then all in one batch,
+    answers equal to phase 5's packed path; (3) two hub closures under a
+    1 s deadline; (4) a few requests and hub closures in one batch again
+    on the host with the plain version (R > 1): equal answers and
+    supersteps; (6) ANALYZE of one hub closure: a timeline row a
+    superstep; (7) a profiled rerun of (1)'s first ``PROFILED_REQUESTS``
+    without a deadline; (8) a rerun of (1) with a recorder that keeps
+    the heaviest R = 16 launch, for the kernels line.  The launch counts
+    cover (1) and (2).  Then (5), serving: a ``SlotScheduler`` over the
+    engine, as phase 3, with its own counts, and the seconds the grouped
+    edge layout takes to build after its live update.  Every batch runs under a deadline, so the engine
     counts its supersteps (the JAX package's rule).  (1) runs twice: with
     its plans and planner decisions cold, then warm; the planner's
     statistics are harvested before it and timed apart."""
@@ -1722,14 +1813,17 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
     import torch
     from repro_torch import kernels
     from repro_torch.core.engines import make_engine
+    stamps = Stamps()
     t0 = time.perf_counter()
     engine = make_engine(graph, kind="dense")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    stamps.mark("engine_build")
 
     t0 = time.perf_counter()
     engine.graph_stats             # the planner's statistics, harvested once
     stats_s = time.perf_counter() - t0
+    stamps.mark("planner_stats")
     kernels.reset_launch_counts()
     answers, batch_s, steps, dispatches, launches_a = _timed_dense_batch(
         engine, queries, BATCH_DEADLINE_S)
@@ -1737,14 +1831,16 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
         if got != want:
             fail(f"dense answer of {q} differs from the ring engine's")
     shapes_a = _dense_shapes(engine)
+    stamps.mark("1_batch_cold")
     again, warm_s, *_ = _timed_dense_batch(engine, queries,
                                            BATCH_DEADLINE_S)
     if again != answers:
         fail("the dense engine's warm rerun differs from its first run")
     del again
+    stamps.mark("1_batch_warm")
 
     per_request, hub_steps = [], []
-    for q, want in zip(skipped, hub_answers):
+    for q, want in zip(skipped[:HUB_SUBSET], hub_answers):
         got, secs, st, _d, _n = _timed_dense_batch(engine, [q],
                                                    BATCH_DEADLINE_S)
         per_request.append(secs)
@@ -1752,6 +1848,7 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
         if got[0] != want:
             fail(f"dense answer of hub closure {q} differs from the packed "
                  f"path's")
+    stamps.mark("2_hubs_one_a_call")
     got, hub_batch_s, hub_batch_steps, hub_dispatches, _n = \
         _timed_dense_batch(engine, skipped, BATCH_DEADLINE_S)
     if got != hub_answers:
@@ -1759,6 +1856,7 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
     del got
     launches = kernels.launch_counts()
     check_packed_launches(launches, "the dense path")
+    stamps.mark("2_hubs_one_batch")
 
     overrun = []
     for q in skipped[:OVERRUN_PROBES]:
@@ -1771,10 +1869,14 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
         overrun.append({"query": [q.expr, q.subject, q.obj],
                         "status": status,
                         "seconds": time.perf_counter() - t1})
+    stamps.mark("3_overrun_probes")
 
     mixed = list(queries[:DENSE_HOST_REQUESTS]) + \
         list(skipped[:DENSE_HOST_HUBS])
-    host = make_engine(graph, kind="dense", device="cpu")
+    # the card engine's statistics, so the host's planner decides alike
+    # without harvesting them again
+    host = make_engine(graph, kind="dense", device="cpu",
+                       stats=_stats_copy(engine.graph_stats))
     card_mixed = _timed_dense_batch(engine, mixed, HOST_DEADLINE_S)
     t1 = time.perf_counter()
     host_mixed = host.eval_many(mixed, deadline_s=HOST_DEADLINE_S)
@@ -1790,6 +1892,7 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                   "dispatches": card_mixed[3], "card_s": card_mixed[1],
                   "host_s": host_s, "shapes": _dense_shapes(host)}
     del host, host_mixed, card_mixed
+    stamps.mark("4_host_plain_check")
 
     q = skipped[0]
     from repro_torch.core.engines import Query
@@ -1802,16 +1905,29 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                "supersteps": ex["supersteps"],
                "kernel_ms": sum(r["kernel_ms"] for r in ex["timeline"]),
                "elapsed_ms": ex["elapsed_ms"]}
+    stamps.mark("6_analyze")
 
-    profiled = dense_busy(engine, queries, steps)
+    # the profiled requests' own supersteps (counted under a deadline)
+    profiled_steps = _timed_dense_batch(
+        engine, queries[:PROFILED_REQUESTS], BATCH_DEADLINE_S)[2]
+    profiled = dense_busy(engine, queries[:PROFILED_REQUESTS],
+                          profiled_steps)
+    stamps.mark("7_profiled_rerun")
     recorded = record_dense_launch(engine, queries, capture)
     if recorded.pop("answers") != ring_answers:
         fail("the dense engine's recorded rerun differs from the ring's")
+    stamps.mark("8_recorded_rerun")
     serving = dense_serving(engine, queries, ring_answers, adds)
+    stamps.mark("5_serving")
 
     secs = np.array(per_request)
     return {"phase": "dense_path", "dense_engine_build_s": build_s,
             "planner_stats_s": stats_s,
+            "cut": f"the hub closures one request a call: the first "
+                   f"{len(per_request)} of {len(skipped)} (the one-batch "
+                   f"pass answers all {len(skipped)}); the profiled rerun: "
+                   f"the first {PROFILED_REQUESTS} of {len(queries)} "
+                   f"requests",
             "batch": {"requests": len(queries), "equal_to_ring": True,
                       "seconds": batch_s, "warm_seconds": warm_s,
                       "supersteps": steps,
@@ -1820,10 +1936,12 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                       "shapes": shapes_a},
             "hub_closures": {
                 "requests": len(skipped), "equal_to_packed_path": True,
+                "one_a_call": len(per_request),
                 "request_s_median_p99_max": [float(np.median(secs)),
                                              float(np.quantile(secs, 0.99)),
                                              float(secs.max())],
                 "supersteps_total": int(sum(hub_steps)),
+                "one_a_call_s": float(secs.sum()),
                 "one_batch_s": hub_batch_s,
                 "one_batch_supersteps": hub_batch_steps,
                 "one_batch_dispatches": hub_dispatches},
@@ -1832,17 +1950,17 @@ def phase_dense(graph, queries, ring_answers, skipped, hub_answers,
                                      "probes": overrun},
             "host_plain_check": host_check, "analyze": analyze,
             **profiled, "recorded_rerun": recorded,
-            "serving": serving}, engine, stats_s
+            "serving": serving, "substep_s": stamps.seconds}, engine, stats_s
 
 
 def dense_busy(engine, queries, supersteps: int,
                chunk_span: str = "dense.bfs_chunk"):
-    """Rerun (1) without a deadline (so the loop's chunks grow 1, 2, 4,
-    ... 16) under ``torch.profiler`` and a tracer: the card's busy time
-    against the rerun's wall time, its CUDA runtime calls, the
-    ``packed_superstep`` launches and the flag reads (one a
-    ``chunk_span`` span), per superstep of (1) too: the same rows run the
-    same supersteps."""
+    """Rerun ``queries``, which took ``supersteps`` under a deadline,
+    without one (so the loop's chunks grow 1, 2, 4, ... 16) under
+    ``torch.profiler`` and a tracer: the card's busy time against the
+    rerun's wall time, its CUDA runtime calls, the ``packed_superstep``
+    launches and the flag reads (one a ``chunk_span`` span), per
+    superstep too: the same rows run the same supersteps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
@@ -1864,7 +1982,9 @@ def dense_busy(engine, queries, supersteps: int,
     runtime = {e.key: e.count for e in events
                if e.key.startswith(("cudaLaunch", "cudaMemcpy"))}
     reads = sum(1 for e in tracer.events if e["name"] == chunk_span)
-    return {"profiled_batch_s": wall, "device_busy_ms": busy_us / 1e3,
+    return {"profiled_batch_s": wall, "profiled_requests": len(queries),
+            "profiled_supersteps": supersteps,
+            "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "runtime_calls": runtime,
             "cudaLaunchKernel_per_superstep":
@@ -2356,6 +2476,7 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
     from repro_torch.kernels import ops as kops
     gc.freeze()       # the earlier phases' answers live on: never walk them
     t_phase = time.perf_counter()
+    stamps = Stamps()
     reqs = serve.one_endpoint_requests(graph, tried)
 
     def key(q):
@@ -2387,10 +2508,12 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
         idx = list(range(len(reqs))) if idx is None else idx
         engine = builds[name]()
         kernels.reset_launch_counts()
+        stamps.mark(f"{name}_setup")
         run = serve.run(engine, [reqs[i] for i in idx], slots=SERVE_SLOTS,
                         concurrency=SERVE_SLOTS, deadline_s=deadline_s,
                         adds=adds)
         launches = kernels.launch_counts()
+        stamps.mark(f"{name}_serve")
         run["idx"] = idx
         if run["update_epoch"] != 1:
             fail(f"{name}: the live update made epoch {run['update_epoch']}")
@@ -2416,9 +2539,11 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
         return run
 
     def replay(name, run, engine):
+        stamps.mark(f"{name}_setup")
         engine.add_edges(adds)
         out[name]["flight"] = serve.replay(run["scraped"]["/flight"][1],
                                            engine)
+        stamps.mark(f"{name}_replay")
         if out[name]["flight"]["parity"] != 1.0:
             fail(f"{name}: /flight replay parity "
                  f"{out[name]['flight']['parity']}")
@@ -2438,6 +2563,7 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
             fail(f"{name}: {e}")
         out[name].update(answers_equal_eval_many=checked,
                          epoch_1_eval_many_s=time.perf_counter() - t0)
+        stamps.mark(f"{name}_check")
 
     # (a) the ring, its largest nfa_step launch kept for the kernels line
     original = kops.nfa_step
@@ -2490,6 +2616,7 @@ def phase_serving_front(graph, ring, stats, tried: int, queries, answers,
             fail(f"{out[name]['timeouts']} requests timed out on the "
                  f"{name} serving front at {BATCH_DEADLINE_S} s")
     out["seconds"] = time.perf_counter() - t_phase
+    out["substep_s"] = stamps.seconds
     return out
 
 
@@ -2780,14 +2907,15 @@ def lm_resume():
 def lm_full_checkpoint(full_state) -> dict:
     """(c), its second part: the full 30-layer state of (a) saved and
     restored once each, exact.  It runs on a thread beside (b), (c)'s
-    resume runs, (d) and (e), whose eager steps hold one core: zlib
-    deflates and inflates on another with the GIL released."""
+    resume runs, (d), (e) and phases 11-12, whose eager steps hold one
+    core: zlib deflates and inflates on another with the GIL released.
+    The state stays on the card until the restore has been checked."""
     import tempfile
     import torch
     from repro_torch import checkpoint as ckpt
     from repro_torch.train import loop
-    out = {"full_beside": "(b) lm_path, (c)'s runs, (d) lm_serve and (e) "
-           "lm_card_vs_cpu, on a thread"}
+    out = {"full_beside": "(b) lm_path, (c)'s runs, (d) lm_serve, (e) "
+           "lm_card_vs_cpu and phases 11-12, on a thread"}
     full = ckpt._flatten(loop.train_state_tree(full_state))
     before = [t.clone() for _, t in full]
     with tempfile.TemporaryDirectory() as d:
@@ -2889,10 +3017,11 @@ def lm_card_vs_cpu():
     return out
 
 
-def phase_lm(smi: str) -> None:
+def phase_lm(smi: str):
     """Phase 10: the LM on the card, (a)-(e), one line each; the RPQ
     kernels' counts set to 0 before and read after: the LM launches none
-    of them."""
+    of them.  Returns the future of (c)'s full-state checkpoint, which
+    goes on beside phases 11-12 (:func:`join_full_checkpoint`)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     t_phase = time.perf_counter()
@@ -2901,23 +3030,32 @@ def phase_lm(smi: str) -> None:
     line, state = lm_train(smi)
     emit(line)
     # (c)'s full-state checkpoint, host-bound on one core, beside (b),
-    # (c)'s resume runs, (d) and (e)
-    with ThreadPoolExecutor(1) as pool:
-        full = pool.submit(lm_full_checkpoint, state)
-        del state
-        emit(lm_path())
-        emit(lm_resume())
-        emit(lm_serve())
-        emit(lm_card_vs_cpu())
-        t0 = time.perf_counter()
-        emit({"phase": "lm_full_checkpoint", **full.result(),
-              "wait_s": time.perf_counter() - t0})
+    # (c)'s resume runs, (d), (e) and phases 11-12
+    pool = ThreadPoolExecutor(1)
+    full = pool.submit(lm_full_checkpoint, state)
+    pool.shutdown(wait=False)
+    del state
+    emit(lm_path())
+    emit(lm_resume())
+    emit(lm_serve())
+    emit(lm_card_vs_cpu())
     torch.cuda.empty_cache()
     launches = launch_counts()
     emit({"phase": "lm", "kernel_launches": launches,
+          "full_checkpoint_done": full.done(),
           "seconds": time.perf_counter() - t_phase})
     if any(launches.values()):
         fail(f"the LM launched an RPQ kernel: {launches}")
+    return full
+
+
+def join_full_checkpoint(full) -> None:
+    """Phase 10 (c)'s full-state line, after phases 11-12: its save and
+    restore seconds, and ``wait_s``, how long the script waited for the
+    thread there."""
+    t0 = time.perf_counter()
+    emit({"phase": "lm_full_checkpoint", **full.result(),
+          "wait_s": time.perf_counter() - t0})
 
 
 # -- phase 11 ----------------------------------------------------------------
@@ -4715,17 +4853,21 @@ def main() -> int:
     # makes one)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
+    selection = select_beside()
     if opts.parent is not None:
         PARENT = ParentSuperstep(opts.parent)
     phase_device()
     errs: dict = {}
     capture: dict = {}
     phase_kernels(errs, capture)
-    graph = fixtures.scale_free_graph(200_000, 64, 2_000_000, seed=7)
+    t0 = time.perf_counter()
+    sizes, seed = MAIN_GRAPH
+    graph = fixtures.scale_free_graph(*sizes, seed=seed)
+    graph_s = time.perf_counter() - t0
     engine, queries, answers, skipped, report = run_main_path(
-        graph, "cuda", BATCH, BATCH_DEADLINE_S, capture)
+        graph, "cuda", BATCH_DEADLINE_S, selection, capture)
     torch.cuda.synchronize()
-    emit({"phase": "main_path", **report})
+    emit({"phase": "main_path", "graph_s": graph_s, **report})
     if report["kernel_launches"] <= 0:
         fail("the main path launched no nfa_step kernel")
     from repro_torch.serve import live_adds     # the serving phases' edges
@@ -4752,9 +4894,10 @@ def main() -> int:
         hub_answers, capture)
     del hub_answers, dense_engine
     emit(front)
-    phase_lm(smi_line())
+    full_checkpoint = phase_lm(smi_line())
     phase_families(smi_line())
     phase_lm_mesh(smi_line())
+    join_full_checkpoint(full_checkpoint)
     bfs = phase_dry_run(smi_line(), errs, capture)
     audit = phase_analysis(smi_line())
     emit(audit)

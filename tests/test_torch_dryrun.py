@@ -205,6 +205,19 @@ def test_wire_bytes_match_reference_hlo_model():
         want = collective_bytes(line).bytes_by_kind[kind]
         assert cost.wire_bytes(kind, size, n) == pytest.approx(want, rel=0,
                                                                abs=0)
+    # the JAX package's test_hlo_collective_parser: its three lines in one
+    # module, one collective of each kind, at its stated bytes
+    st = collective_bytes("\n".join(lines[k][0] for k in (
+        "all-gather", "all-reduce", "collective-permute")))
+    assert st.count_by_kind == {"all-gather": 1, "all-reduce": 1,
+                                "collective-permute": 1}
+    stated = {"all-gather": 32 * 1024 * 2 * 15 / 16,
+              "all-reduce": 2 * 128 * 4 * 3 / 4,
+              "collective-permute": 64 * 4}
+    for kind, value in stated.items():
+        _line, size, n = lines[kind]
+        assert st.bytes_by_kind[kind] == pytest.approx(value)
+        assert cost.wire_bytes(kind, size, n) == pytest.approx(value)
     # the port's names, and the sharding module's own count
     assert cost.wire_bytes("all_gather", 4096, 16) == 4096 * 15 / 16
 

@@ -128,10 +128,19 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-# reference RPQ tests without a same-named test_torch_* counterpart: the
-# counterpart under another name ("file::test"), or why there is none
-REFERENCE_SUITES = ("core", "engines", "hetero_batch", "updates", "planner",
-                    "obs", "explain")
+# Every reference suite (``tests/test_*.py`` but ``test_torch_*.py``) is
+# read by AST, never imported.  Each of its tests needs a same-named test in
+# some ``tests/test_torch_*.py``; or an entry of COUNTERPART_EXCEPTIONS,
+# which names a port test ("file::test") that makes every assertion the
+# reference test makes, on the same cases or a superset (in the port's
+# idiom where the reference asserts on JAX's); or, for the tests of the
+# benchmark's regression gate only, an entry of AWAITING_BENCHMARK.
+# The seven RPQ suites were the first under the check.
+REFERENCE_SUITES = tuple(sorted(
+    f.stem[len("test_"):] for f in (ROOT / "tests").glob("test_*.py")
+    if not f.name.startswith("test_torch_")))
+RPQ_SUITES = ("core", "engines", "hetero_batch", "updates", "planner",
+              "obs", "explain")
 COUNTERPART_EXCEPTIONS = {
     "test_engines_agree_on_workload":
         "test_torch_dense.py::test_ring_and_dense_agree_on_workload",
@@ -152,30 +161,119 @@ COUNTERPART_EXCEPTIONS = {
         "test_torch_dense_serving.py::test_analyze_timeline_matches_reference",
     "test_eval_many_delivers_explain_reports":
         "test_torch_dense_serving.py::test_eval_many_delivers_analyze_reports",
+    # tests/test_kernels.py: the same sizes, each against the JAX package
+    # and its oracles, and the reference test's own checks (the
+    # directory's steps, rank1 against a prefix sum, the packed shape)
+    "test_rank_kernel":
+        "test_torch_kernels.py::test_superblock_popcounts_and_directory",
+    "test_rank1_matches_ref":
+        "test_torch_kernels.py::test_rank1_matches_reference",
+    # the whole scan against the oracle (the Pallas kernel's is one tile)
+    "test_segmented_scan_matches_associative_scan":
+        "test_torch_kernels.py::test_segmented_or_scan_matches_reference",
+    "test_pack_unpack_roundtrip":
+        "test_torch_kernels.py::test_pack_unpack_match_reference",
+    # tests/test_system.py: the port reads no HLO; its wire model is held
+    # to the reference's parser on the reference's lines and stated bytes
+    "test_hlo_collective_parser":
+        "test_torch_dryrun.py::test_wire_bytes_match_reference_hlo_model",
+    "test_sharding_sanitize":
+        "test_torch_sharding.py::"
+        "test_sanitize_matches_the_reference_system_cases",
+    # tests/test_analysis.py: the same fixtures in the port's idiom (the
+    # port's R003 also wants a card test; its trace audit runs a step
+    # under a dispatch mode, where a host read stands for a callback and
+    # int64 for a signed word)
+    "test_r003_missing_ref_then_missing_test_then_clean":
+        "test_torch_analysis.py::"
+        "test_r003_missing_ref_then_cpu_test_then_card_test_then_clean",
+    "test_audit_jaxpr_clean_step":
+        "test_torch_analysis.py::test_audit_step_clean_step",
+    "test_audit_jaxpr_catches_dtype_break":
+        "test_torch_analysis.py::test_audit_step_catches_dtype_break",
+    "test_audit_jaxpr_catches_host_callback":
+        "test_torch_analysis.py::test_audit_step_catches_host_read",
+    "test_audit_jaxpr_reports_lowering_failure_as_finding":
+        "test_torch_analysis.py::test_audit_step_reports_failure_as_finding",
+}
+# reference tests of ``benchmarks/compare.py`` (loaded by
+# ``tests/test_scheduler.py``'s ``_compare_mod``), the benchmark's
+# regression gate, which a benchmark PR ports with the benchmark itself
+AWAITING_BENCHMARK = {
+    "test_compare_gate_fails_on_injected_slowdown":
+        "the regression gate of benchmarks/compare.py, ported with the "
+        "benchmark",
+    "test_compare_gate_skips_without_previous":
+        "the regression gate of benchmarks/compare.py, ported with the "
+        "benchmark",
 }
 
 
+def _functions(path: Path) -> dict:
+    return {n.name: n for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+
+
 def _test_names(path: Path) -> set:
-    return {n.name for n in ast.parse(path.read_text()).body
-            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
-            and n.name.startswith("test_")}
+    return {n for n in _functions(path) if n.startswith("test_")}
 
 
-def test_every_reference_rpq_test_has_a_counterpart():
-    """Each ``test_*`` of the reference's RPQ suites, read by AST (never
-    imported), has a same-named test in some ``tests/test_torch_*.py``,
-    or an entry of ``COUNTERPART_EXCEPTIONS`` whose counterpart exists;
-    and no exception is stale (its name has no same-named port test)."""
+def _suite(name: str) -> Path:
+    return ROOT / "tests" / f"test_{name}.py"
+
+
+def _check_counterparts(suites) -> None:
+    """Each ``test_*`` of ``suites`` has a same-named test in some
+    ``tests/test_torch_*.py``, an entry of ``COUNTERPART_EXCEPTIONS``
+    whose counterpart exists, or one of ``AWAITING_BENCHMARK``; and no
+    entry of either map is stale (names a reference test that now has a
+    same-named port test, or none at all)."""
     tests = ROOT / "tests"
     port = {f.name: _test_names(f) for f in tests.glob("test_torch_*.py")}
     every_port = set().union(*port.values())
-    reference = set()
-    for suite in REFERENCE_SUITES:
-        reference |= _test_names(tests / f"test_{suite}.py")
-    assert len(reference) > 80
-    missing = sorted(reference - every_port - set(COUNTERPART_EXCEPTIONS))
+    everywhere = set().union(*(_test_names(_suite(s))
+                               for s in REFERENCE_SUITES))
+    reference = set().union(*(_test_names(_suite(s)) for s in suites))
+    missing = sorted(reference - every_port - set(COUNTERPART_EXCEPTIONS)
+                     - set(AWAITING_BENCHMARK))
     assert missing == [], missing
+    assert not set(COUNTERPART_EXCEPTIONS) & set(AWAITING_BENCHMARK)
     for name, counterpart in COUNTERPART_EXCEPTIONS.items():
-        assert name in reference and name not in every_port, name
+        assert name in everywhere and name not in every_port, name
         file, test = counterpart.split("::")
         assert test in port.get(file, set()), (name, counterpart)
+    for name in AWAITING_BENCHMARK:
+        assert name in everywhere and name not in every_port, name
+
+
+def test_every_reference_test_has_a_counterpart():
+    """All fourteen reference suites, read by AST (never imported)."""
+    assert len(REFERENCE_SUITES) == 14, REFERENCE_SUITES
+    assert set(RPQ_SUITES) < set(REFERENCE_SUITES)
+    assert sum(len(_test_names(_suite(s))) for s in REFERENCE_SUITES) > 200
+    _check_counterparts(REFERENCE_SUITES)
+
+
+def test_every_reference_rpq_test_has_a_counterpart():
+    """The seven RPQ suites, the first under the check."""
+    assert sum(len(_test_names(_suite(s))) for s in RPQ_SUITES) > 80
+    _check_counterparts(RPQ_SUITES)
+
+
+def test_awaiting_benchmark_holds_only_compare_gate_tests():
+    """``AWAITING_BENCHMARK`` holds exactly the tests of
+    ``tests/test_scheduler.py`` whose bodies call ``_compare_mod()`` (the
+    loader of ``benchmarks/compare.py``), read by AST: the map parks no
+    test that the port could fail."""
+    fns = _functions(_suite("scheduler"))
+
+    def loads_compare(fn) -> bool:
+        return any(isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                   and n.func.id == "_compare_mod" for n in ast.walk(fn))
+
+    gate = {n for n, fn in fns.items()
+            if n.startswith("test_") and loads_compare(fn)}
+    assert "_compare_mod" in fns
+    assert set(AWAITING_BENCHMARK) == gate == {
+        "test_compare_gate_fails_on_injected_slowdown",
+        "test_compare_gate_skips_without_previous"}

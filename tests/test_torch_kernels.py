@@ -101,6 +101,7 @@ def test_pack_unpack_match_reference():
     for shape in [(17, 45), (3, 5, 64), (1, 1), (8, 33)]:
         planes = rng.integers(0, 2, shape).astype(np.uint8)
         packed = tops.pack_bits(planes)
+        assert packed.shape == (*shape[:-1], (shape[-1] + 31) // 32)
         np.testing.assert_array_equal(packed, jops.pack_bits(planes))
         np.testing.assert_array_equal(tops.unpack_bits(packed, shape[-1]),
                                       jops.unpack_bits(packed, shape[-1]))
@@ -329,7 +330,12 @@ def _bitvector_words(rng, n_bits, density):
 
 @pytest.mark.parametrize("n_bits", [100, 515, 8192, 40000])
 def test_superblock_popcounts_and_directory(n_bits):
-    words, _ = _bitvector_words(np.random.default_rng(n_bits), n_bits, 0.5)
+    """The JAX package's ``test_rank_kernel`` cases and more: the
+    popcounts and the directory equal the JAX package's, the directory's
+    steps are the popcounts, and ``rank1`` at 200 random offsets equals a
+    numpy prefix sum."""
+    rng = np.random.default_rng(n_bits)
+    words, bits = _bitvector_words(rng, n_bits, 0.5)
     tw = tops.words_to_tensor(words, "cpu")
     pc = tops.superblock_popcounts(tw)
     assert pc.dtype == torch.int32
@@ -340,6 +346,11 @@ def test_superblock_popcounts_and_directory(n_bits):
     assert directory.dtype == torch.int32
     np.testing.assert_array_equal(directory.numpy(),
                                   np.asarray(jops.build_rank_directory(words)))
+    np.testing.assert_array_equal(np.diff(directory.numpy()), pc.numpy())
+    q = rng.integers(0, n_bits + 1, 200)
+    got = tops.rank1(tw, directory, torch.from_numpy(q.astype(np.int32)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.concatenate([[0], np.cumsum(bits)])[q])
 
 
 @pytest.mark.parametrize("n_bits", [100, 515, 8192, 40000])
